@@ -1,0 +1,1 @@
+"""models layer of the PyTorch port (mirrors optimal_control_paradiag_tpu/models)."""

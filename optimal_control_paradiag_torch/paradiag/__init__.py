@@ -1,0 +1,1 @@
+"""paradiag layer of the PyTorch port (mirrors optimal_control_paradiag_tpu/paradiag)."""

@@ -1,0 +1,257 @@
+"""The fused half-spectrum Woodbury solve as ONE hand-written CUDA kernel.
+
+The counterpart of ``optimal_control_paradiag_tpu/paradiag/pallas_woodbury.py``.
+The plain half-spectrum solve (``paradiag/spectral.py``) spends its
+non-transform time in ~30 elementwise passes over the ``(K, n)`` spectral
+state (K = N_t//2 + 1): D^{-1}, 4 slice extractions, the 4x4 capacity mix,
+rank-1 injections, D^{-1}, then per ``refine`` step the exact operator A_hat
+and a second Woodbury pass. The kernel (``csrc/woodbury.cu``) does all of it,
+``b_hat -> x``, in one launch; its source comment gives the schedule.
+
+Three pieces, in the order the solve uses them:
+
+- :func:`pack_constants`: the per-(k, j) constants a11r, a11i, invdet (from
+  the float64 a11/det, then cast), the per-column rows m1, kap1, tm1, mk1,
+  the capacity matrices G and the phases, in the working dtype on the
+  operator's device;
+- :func:`fused_woodbury`: the wrapper. On a CUDA tensor it launches the
+  kernel (and counts the launch in ``fused_woodbury.launches``); on a CPU
+  tensor it runs :func:`fused_woodbury_reference`, the plain PyTorch twin of
+  the kernel body on the same packed constants;
+- :func:`build_cuda_woodbury_solver`: ``b -> x``: DST matmul, packed time
+  FFT, one kernel launch, inverse packed FFT, inverse DST.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Callable
+
+import numpy as np
+import torch
+
+from optimal_control_paradiag_torch.cuda_build import load_library
+from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
+from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator
+from optimal_control_paradiag_torch.paradiag.spectral import (
+    _real_capacity_matrices,
+    _spectral_plan,
+    make_halfspectrum_transforms,
+    pairing_weights,
+)
+from optimal_control_paradiag_torch.utils.constants import to_device
+
+KERNEL_SOURCE = "woodbury.cu"
+
+
+@dataclasses.dataclass(frozen=True)
+class WoodburyConstants:
+    """Packed constants of the fused solve, working dtype, one device."""
+
+    a11r: torch.Tensor  # (K, n) Re a11
+    a11i: torch.Tensor  # (K, n) Im a11
+    invdet: torch.Tensor  # (K, n) 1 / (|a11|^2 + tm^2)
+    colc: torch.Tensor  # (4, n) rows m1, kap1, tm1, mk1
+    gc: torch.Tensor  # (16, n) G[a][b] of column j at row 4a + b
+    phases: torch.Tensor  # (K, 16) phi (weighted extraction) and psi (injection), re/im
+
+
+def pack_constants(op: AllAtOnceOperator) -> WoodburyConstants:
+    """Host float64 constant packing (``pallas_woodbury.py:157-222``) without
+    the Pallas column padding: the kernel guards ``j < n`` itself."""
+    plan = _spectral_plan(op)
+    N_t, n = plan.N_t, plan.n
+    K = N_t // 2 + 1
+    rdtype, dev = plan.rdtype, plan.device
+    a11_h = plan.a11_h[:K]
+    det_h = plan.det_h[:K]
+    muM, muK = plan.muM64, plan.muK64
+    colc = np.stack([muM, plan.c * muK, plan.theta * muM, muM + plan.c * muK])
+
+    gc = _real_capacity_matrices(plan).transpose(1, 2, 0).reshape(16, n)
+
+    k = np.arange(K)
+    wgt = pairing_weights(N_t)
+    phases = np.zeros((K, 16))
+    for col, (i, sign, scale) in enumerate(
+        [
+            (N_t - 1, -1, None),  # phi_uNm1 (weighted)
+            (N_t - 2, -1, None),  # phi_uNm2
+            (0, -1, None),  # phi_p0
+            (1, -1, None),  # phi_p1
+            (0, 1, 1.0 / N_t),  # psi_u0
+            (1, 1, 1.0 / N_t),  # psi_u1
+            (N_t - 1, 1, 1.0 / N_t),  # psi_pNm1
+            (N_t - 2, 1, 1.0 / N_t),  # psi_pNm2
+        ]
+    ):
+        z = np.exp(sign * 2j * np.pi * i * k / N_t)
+        z = z * (wgt if scale is None else scale)
+        phases[:, 2 * col] = z.real
+        phases[:, 2 * col + 1] = z.imag
+
+    put = lambda a: to_device(a, rdtype, dev)
+    return WoodburyConstants(
+        a11r=put(a11_h.real),
+        a11i=put(a11_h.imag),
+        invdet=put(1.0 / det_h),
+        colc=put(colc),
+        gc=put(gc),
+        phases=put(phases),
+    )
+
+
+def fused_woodbury_reference(
+    b_hat: torch.Tensor, c: WoodburyConstants, refine: int
+) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: the Pallas kernel body
+    (``pallas_woodbury.py:57-140``) on split real (K, n) planes. ``b_hat``
+    is a (2, K, n) complex tensor; returns the same."""
+    br = torch.view_as_real(b_hat)
+    bur, bui, bpr, bpi = br[0, ..., 0], br[0, ..., 1], br[1, ..., 0], br[1, ..., 1]
+    a11r, a11i, invdet = c.a11r, c.a11i, c.invdet
+    m1, kap1, tm1, mk1 = c.colc[0], c.colc[1], c.colc[2], c.colc[3]
+    gc = c.gc
+    ph = [c.phases[:, i : i + 1] for i in range(16)]
+
+    def d_inv(ur, ui, pr, pi):
+        # yu = (conj(a11) u + tm p) / det ; yp = (a11 p - tm u) / det
+        yur = (a11r * ur + a11i * ui + tm1 * pr) * invdet
+        yui = (a11r * ui - a11i * ur + tm1 * pi) * invdet
+        ypr = (a11r * pr - a11i * pi - tm1 * ur) * invdet
+        ypi = (a11r * pi + a11i * pr - tm1 * ui) * invdet
+        return yur, yui, ypr, ypi
+
+    def extract(ur, ui, pr, pi):
+        # Real part of sum_k phi_k y_k with the pairing weights in phi.
+        uN1 = torch.sum(ph[0] * ur - ph[1] * ui, dim=0)
+        uN2 = torch.sum(ph[2] * ur - ph[3] * ui, dim=0)
+        p0 = torch.sum(ph[4] * pr - ph[5] * pi, dim=0)
+        p1 = torch.sum(ph[6] * pr - ph[7] * pi, dim=0)
+        return uN1, uN2, p0, p1
+
+    def psi_outer(w0, w1, w2, w3):
+        return (
+            ph[8] * w0 + ph[10] * w1,
+            ph[9] * w0 + ph[11] * w1,
+            ph[12] * w2 + ph[14] * w3,
+            ph[13] * w2 + ph[15] * w3,
+        )
+
+    def wb_apply(rur, rui, rpr, rpi):
+        yur, yui, ypr, ypi = d_inv(rur, rui, rpr, rpi)
+        z = extract(yur, yui, ypr, ypi)
+        w = [
+            gc[4 * a + 0] * z[0] + gc[4 * a + 1] * z[1] + gc[4 * a + 2] * z[2] + gc[4 * a + 3] * z[3]
+            for a in range(4)
+        ]
+        dur, dui, dpr, dpi = d_inv(*psi_outer(*w))
+        return yur - dur, yui - dui, ypr - dpr, ypi - dpi
+
+    def a_hat(ur, ui, pr, pi):
+        # D x  (a22 = conj(a11); tm real), plus the rank-4 boundary rows
+        dur = a11r * ur - a11i * ui - tm1 * pr
+        dui = a11r * ui + a11i * ur - tm1 * pi
+        dpr = tm1 * ur + a11r * pr + a11i * pi
+        dpi = tm1 * ui + a11r * pi - a11i * pr
+        uN1, uN2, p0, p1 = extract(ur, ui, pr, pi)
+        r0 = m1 * (2.0 * uN1 - uN2) - kap1 * uN2 + 0.5 * tm1 * p0
+        r1 = -mk1 * uN1
+        r2 = m1 * (2.0 * p0 - p1) - kap1 * p1 - 0.5 * tm1 * uN1
+        r3 = -mk1 * p0
+        iur, iui, ipr, ipi = psi_outer(r0, r1, r2, r3)
+        return dur + iur, dui + iui, dpr + ipr, dpi + ipi
+
+    xur, xui, xpr, xpi = wb_apply(bur, bui, bpr, bpi)
+    for _ in range(refine):
+        aur, aui, apr, api = a_hat(xur, xui, xpr, xpi)
+        cur, cui, cpr, cpi = wb_apply(bur - aur, bui - aui, bpr - apr, bpi - api)
+        xur, xui = xur + cur, xui + cui
+        xpr, xpi = xpr + cpr, xpi + cpi
+
+    out = torch.stack([torch.stack([xur, xui], -1), torch.stack([xpr, xpi], -1)])
+    return torch.view_as_complex(out.contiguous())
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_library() -> ctypes.CDLL:
+    """The built kernel library, with its ctypes signatures declared."""
+    lib = load_library(KERNEL_SOURCE).lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.woodbury_fused_f32, lib.woodbury_fused_f64):
+        fn.argtypes = [p] * 8 + [i, i, i, i, p]
+        fn.restype = i
+    lib.woodbury_error_string.argtypes = [i]
+    lib.woodbury_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def fused_woodbury(b_hat: torch.Tensor, consts: WoodburyConstants, refine: int) -> torch.Tensor:
+    """``x = A_hat^{-1} b_hat`` on the half spectrum, with ``refine`` defect
+    corrections. ``b_hat`` is a contiguous (2, K, n) complex tensor.
+
+    A CUDA tensor goes to the CUDA kernel (one launch, counted in
+    ``fused_woodbury.launches``); a build or launch failure raises. A CPU
+    tensor goes to :func:`fused_woodbury_reference`."""
+    if b_hat.device.type == "cpu":
+        return fused_woodbury_reference(b_hat, consts, refine)
+    if b_hat.device.type != "cuda":
+        raise ValueError(f"fused_woodbury runs on CUDA or CPU tensors, got {b_hat.device}")
+    real = {torch.complex64: torch.float32, torch.complex128: torch.float64}.get(b_hat.dtype)
+    K, n = consts.a11r.shape
+    if real is None or b_hat.shape != (2, K, n) or not b_hat.is_contiguous() or b_hat.is_conj():
+        raise ValueError(
+            f"b_hat must be a contiguous, resolved (2, {K}, {n}) complex tensor; "
+            f"got {tuple(b_hat.shape)} {b_hat.dtype}"
+        )
+    for name in ("a11r", "a11i", "invdet", "colc", "gc", "phases"):
+        t = getattr(consts, name)
+        if t.dtype != real or t.device != b_hat.device or not t.is_contiguous():
+            raise ValueError(f"constant {name} must be contiguous {real} on {b_hat.device}")
+    if consts.colc.shape != (4, n) or consts.gc.shape != (16, n) or consts.phases.shape != (K, 16):
+        raise ValueError("packed constants have inconsistent shapes")
+    if not isinstance(refine, int) or refine < 0:
+        raise ValueError(f"refine must be a non-negative int, got {refine!r}")
+
+    lib = _kernel_library()
+    fn = lib.woodbury_fused_f32 if real == torch.float32 else lib.woodbury_fused_f64
+    x = torch.empty_like(b_hat)
+    err = fn(
+        b_hat.data_ptr(), x.data_ptr(),
+        consts.a11r.data_ptr(), consts.a11i.data_ptr(), consts.invdet.data_ptr(),
+        consts.colc.data_ptr(), consts.gc.data_ptr(), consts.phases.data_ptr(),
+        K, n, refine, b_hat.device.index if b_hat.device.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(b_hat.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"woodbury_fused launch failed: {lib.woodbury_error_string(err).decode()} ({err})"
+        )
+    fused_woodbury.launches += 1
+    return x
+
+
+fused_woodbury.launches = 0
+
+
+def build_cuda_woodbury_solver(
+    op: AllAtOnceOperator, refine: int = 1, pack_fft: bool = True
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Direct solver ``b -> x``: DST matmul and time FFT (``pack_fft``: one
+    packed complex FFT of u + i p, else two rffts) around ONE fused kernel
+    launch for the whole spectral Woodbury pipeline, ``refine`` included. On
+    a CUDA operator the kernel is built (from ``csrc/woodbury.cu``) here."""
+    require_full_fp32_matmul()
+    consts = pack_constants(op)
+    if op.space.device.type == "cuda":
+        _kernel_library()
+    to_spectral, from_spectral = make_halfspectrum_transforms(
+        op.space, op.N_t, op.space.dtype, time_transform="fft2" if pack_fft else "fft"
+    )
+
+    def solve(b: torch.Tensor) -> torch.Tensor:
+        return from_spectral(fused_woodbury(to_spectral(b), consts, refine))
+
+    return solve

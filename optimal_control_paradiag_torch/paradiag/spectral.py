@@ -1,0 +1,407 @@
+"""The rank-4 Woodbury DIRECT solve in ParaDiag-diagonalized coordinates
+(PyTorch), and the host float64 residual oracle.
+
+The counterpart of ``optimal_control_paradiag_tpu/paradiag/spectral.py``
+(half-spectrum, unsharded). With T = DST(space) o ifft(time) the all-at-once
+operator becomes ``A_hat = D + B_hat``: D the exact per-(mode k, wavenumber j)
+2x2 circulant block, B_hat a correction that reads four time slices
+(u_{N-1}, u_{N-2}, p_0, p_1) and writes four time rows, with spatially
+diagonal coefficients. Per wavenumber j the correction has rank 4, so
+
+  A_hat_j^{-1} = D_j^{-1} - D_j^{-1} Psi G_j Phi* D_j^{-1},
+  G_j = (I_4 + C_j W_j)^{-1} C_j,   W_j = Phi* D_j^{-1} Psi,
+
+with the capacity matrices G_j computed in float64 on the host. The solve is
+two transforms plus O(1) elementwise passes; ``refine`` defect-correction
+steps (one exact A_hat apply plus one Woodbury apply each) polish the
+working-precision rounding.
+
+The real state has a Hermitian time spectrum, so everything runs on the
+``K = N_t//2 + 1`` rfft bins: extractions pair conjugate bins (weight 2,
+1 on the self-conjugate ones), which makes G_j real.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
+from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator
+from optimal_control_paradiag_torch.ops.transforms import (
+    time_irfft_conj_packed,
+    time_rfft_conj_packed,
+)
+from optimal_control_paradiag_torch.paradiag.eigs import circulant_eigs
+from optimal_control_paradiag_torch.utils.constants import host_const, to_device
+
+
+@dataclasses.dataclass(frozen=True)
+class _SpectralPlan:
+    """Constants of the diagonalized system: float64 host originals, and the
+    working-dtype casts (1D factors on the plan's device, phases on the
+    host)."""
+
+    N_t: int
+    n: int
+    rdtype: torch.dtype
+    np_c: np.dtype  # complex numpy dtype matching rdtype
+    device: torch.device
+    c: float  # dt^2 / 2
+    theta: float  # dt^2 / sqrt(gamma)
+    # float64 originals (Woodbury capacity math):
+    a11_h: np.ndarray  # (N_t, n) complex128
+    det_h: np.ndarray  # (N_t, n) float64
+    muM64: np.ndarray  # (n,)
+    muK64: np.ndarray  # (n,)
+    # working dtype
+    L1c: np.ndarray  # Lambda1(k), (N_t,) complex
+    L2c: np.ndarray  # Lambda2(k), (N_t,) complex
+    m1: torch.Tensor  # muM, (n,)
+    kap1: torch.Tensor  # c * muK, (n,)
+    tm1: torch.Tensor  # theta * muM, (n,)
+    mk1: torch.Tensor  # muM + c muK, (n,)
+
+    def mode_diag(self, K: Optional[int] = None):
+        """Per-mode diagonal ``(a11, a22, tm, inv_det)`` of the circulant
+        block system on the plan's device, each broadcastable to
+        ``(K or N_t, n)``, formed in working precision from the 1D factors:
+
+            a11 = Lambda1 (x) muM + Lambda2 (x) (c muK),   a22 = conj(a11),
+            tm  = theta * muM,   det = |a11|^2 + tm^2.
+        """
+        L1 = torch.from_numpy(self.L1c[:K]).to(self.device)
+        L2 = torch.from_numpy(self.L2c[:K]).to(self.device)
+        a11 = L1[:, None] * self.m1[None, :] + L2[:, None] * self.kap1[None, :]
+        a22 = a11.conj()
+        tm = self.tm1[None, :]
+        inv_det = 1.0 / (torch.square(a11.real) + torch.square(a11.imag) + torch.square(tm))
+        return a11, a22, tm, inv_det
+
+
+def _spectral_plan(op: AllAtOnceOperator) -> _SpectralPlan:
+    sp = op.space
+    if not sp.diagonalizable:
+        raise ValueError("spectral solver needs a sine-diagonalizable space")
+    if not op.scaled:
+        raise ValueError("spectral solver operates on the scaled system")
+    rdtype = sp.dtype
+    np_c = np.dtype(np.complex64 if rdtype == torch.float32 else np.complex128)
+    N_t, n = op.N_t, sp.n
+    c = 0.5 * op.dt * op.dt
+    theta = op.dt * op.dt / math.sqrt(op.gamma)
+
+    e = circulant_eigs(N_t, op.dt, op.gamma)
+    muM_raw, muK = sp.spectrum
+    muM, muK = np.asarray(muM_raw, np.float64), np.asarray(muK, np.float64)
+    L1 = np.asarray(e.Lambda1)[:, None]
+    L2 = np.asarray(e.Lambda2)[:, None]
+    a11_h = L1 * muM[None, :] + c * L2 * muK[None, :]  # (N_t, n)
+    det_h = np.abs(a11_h) ** 2 + (theta * muM[None, :]) ** 2
+
+    dev = sp.device
+
+    return _SpectralPlan(
+        N_t=N_t,
+        n=n,
+        rdtype=rdtype,
+        np_c=np_c,
+        device=dev,
+        c=c,
+        theta=theta,
+        a11_h=a11_h,
+        det_h=det_h,
+        muM64=muM,
+        muK64=muK,
+        L1c=host_const(np.asarray(e.Lambda1), np_c),
+        L2c=host_const(np.asarray(e.Lambda2), np_c),
+        m1=to_device(muM, rdtype, dev),
+        kap1=to_device(c * muK, rdtype, dev),
+        tm1=to_device(theta * muM, rdtype, dev),
+        mk1=to_device(muM + c * muK, rdtype, dev),
+    )
+
+
+# --------------------------------------------------------------------------
+# Woodbury direct solve
+# --------------------------------------------------------------------------
+
+
+def _capacity_matrices(pl: _SpectralPlan) -> np.ndarray:
+    """G_j = (I_4 + C_j W_j)^{-1} C_j per wavenumber j, complex128 host.
+
+    Ordering of the rank-4 factors:
+      extraction rows a (Phi*): 0 = u slice N-1, 1 = u slice N-2,
+                                2 = p slice 0,   3 = p slice 1;
+      injection cols  b (Psi):  0 = u row 0,     1 = u row 1,
+                                2 = p row N-1,   3 = p row N-2.
+    """
+    C, W = _capacity_CW(pl)
+    I4 = np.eye(4)[None]
+    return np.linalg.solve(I4 + C @ W, C.astype(np.complex128))
+
+
+def _real_capacity_matrices(pl: _SpectralPlan) -> np.ndarray:
+    """The float64 real part of :func:`_capacity_matrices`, (n, 4, 4); the
+    half-spectrum pairing makes G_j real, and this raises if it is not."""
+    G_h = _capacity_matrices(pl)
+    if not float(np.abs(G_h.imag).max()) < 1e-10 * max(float(np.abs(G_h.real).max()), 1.0):
+        raise ArithmeticError("half-spectrum capacity matrices are not real")
+    return G_h.real
+
+
+def _capacity_CW(pl: _SpectralPlan):
+    """Per-wavenumber capacity ingredients: C_j (the real 4x4 boundary-row
+    coefficients) and W_j = Phi* D_j^{-1} Psi (the slice-of-inverse 4x4)."""
+    N_t, n = pl.N_t, pl.n
+    k = np.arange(N_t)
+    phiE = lambda i: np.exp(-2j * np.pi * i * k / N_t)  # extraction
+    psiI = lambda i: np.exp(2j * np.pi * i * k / N_t) / N_t  # injection
+
+    # D^{-1} component blocks, complex128, (N_t, n).
+    tm64 = pl.theta * pl.muM64[None, :]
+    iuu = np.conj(pl.a11_h) / pl.det_h
+    iup = tm64 / pl.det_h + 0j
+    ipu = -tm64 / pl.det_h + 0j
+    ipp = pl.a11_h / pl.det_h
+    E = {("u", "u"): iuu, ("u", "p"): iup, ("p", "u"): ipu, ("p", "p"): ipp}
+
+    rows = [("u", phiE(N_t - 1)), ("u", phiE(N_t - 2)), ("p", phiE(0)), ("p", phiE(1))]
+    cols = [("u", psiI(0)), ("u", psiI(1)), ("p", psiI(N_t - 1)), ("p", psiI(N_t - 2))]
+
+    W = np.zeros((n, 4, 4), np.complex128)
+    for a, (ca, pa) in enumerate(rows):
+        for b, (cb, pb) in enumerate(cols):
+            W[:, a, b] = np.einsum("k,kn,k->n", pa, E[(ca, cb)], pb)
+
+    # C_j: outputs (u0, u1, pN-1, pN-2) from inputs (uN-1, uN-2, p0, p1).
+    m = pl.muM64
+    kap = pl.c * pl.muK64
+    t2 = pl.theta * pl.muM64
+    C = np.zeros((n, 4, 4), np.float64)
+    C[:, 0, 0] = 2.0 * m
+    C[:, 0, 1] = -(m + kap)
+    C[:, 0, 2] = 0.5 * t2
+    C[:, 1, 0] = -(m + kap)
+    C[:, 2, 0] = -0.5 * t2
+    C[:, 2, 2] = 2.0 * m
+    C[:, 2, 3] = -(m + kap)
+    C[:, 3, 2] = -(m + kap)
+    return C, W
+
+
+def pairing_weights(N_t: int) -> np.ndarray:
+    """Hermitian pairing weight of each rfft bin: 2 on bins paired with a
+    conjugate, 1 on the self-conjugate ones (k = 0, and N_t/2 if N_t is
+    even)."""
+    K = N_t // 2 + 1
+    wgt = np.full(K, 2.0)
+    wgt[0] = 1.0
+    if N_t % 2 == 0:
+        wgt[K - 1] = 1.0
+    return wgt
+
+
+def make_halfspectrum_transforms(
+    space,
+    N_t: int,
+    rdtype,
+    time_transform: str = "fft",
+) -> Tuple[Callable, Callable]:
+    """``(to_spectral, from_spectral)`` of the half-spectrum pipeline:
+
+        xi = conj(rfft(dst(x), axis=1)) / N_t        (2, K, n) complex
+        x  = idst(irfft(conj(xi)) * N_t)             (2, N_t, n) real
+
+    ``time_transform``: 'fft' (two real rffts) or 'fft2' (one packed complex
+    FFT, ``ops.transforms.time_rfft_conj_packed``). The DST runs first, on
+    the real state."""
+    if time_transform in ("dft", "mxu"):
+        raise NotImplementedError(
+            f"time_transform={time_transform!r} is not ported yet (ROADMAP Queue A "
+            "item 2, deferred transforms); use 'fft' or 'fft2'"
+        )
+    sp = space
+    if time_transform == "fft2":
+
+        def to_spectral(x):
+            return time_rfft_conj_packed(sp.dst(x), N_t)
+
+        def from_spectral(xi):
+            return sp.idst(time_irfft_conj_packed(xi, N_t)).to(rdtype)
+
+    elif time_transform == "fft":
+
+        def to_spectral(x):
+            s = sp.dst(x)
+            return torch.fft.rfft(s, dim=1).conj() * (1.0 / N_t)
+
+        def from_spectral(xi):
+            t = torch.fft.irfft(xi.conj(), n=N_t, dim=1) * float(N_t)
+            return sp.idst(t).to(rdtype)
+
+    else:
+        raise ValueError(f"unknown time_transform {time_transform!r}")
+    return to_spectral, from_spectral
+
+
+def _build_woodbury_half(
+    op: AllAtOnceOperator,
+    pl: _SpectralPlan,
+    refine: int,
+    time_transform: str = "fft",
+):
+    """Half-spectrum Woodbury solve ``b -> x`` on the ``K = N_t//2 + 1``
+    rfft bins (module docstring)."""
+    sp = op.space
+    N_t = pl.N_t
+    K = N_t // 2 + 1
+    rdtype, np_c, dev = pl.rdtype, pl.np_c, pl.device
+    to_spectral, from_spectral = make_halfspectrum_transforms(
+        sp, N_t, rdtype, time_transform=time_transform
+    )
+    m1, kap1, tm1, mk1 = pl.m1, pl.kap1, pl.tm1, pl.mk1
+
+    k = np.arange(K)
+    wgt = pairing_weights(N_t)
+    # Extraction phases carry the pairing weight; injections use plain bins.
+    phiw = lambda i: to_device(wgt * np.exp(-2j * np.pi * i * k / N_t), np_c, dev)
+    psi = lambda i: to_device(np.exp(2j * np.pi * i * k / N_t) / N_t, np_c, dev)
+    phi_uNm1, phi_uNm2, phi_p0, phi_p1 = (phiw(i) for i in (N_t - 1, N_t - 2, 0, 1))
+    psi_u0, psi_u1, psi_pNm1, psi_pNm2 = (psi(i) for i in (0, 1, N_t - 1, N_t - 2))
+
+    G_h = _real_capacity_matrices(pl)
+    G = [[to_device(G_h[:, a, b], rdtype, dev) for b in range(4)] for a in range(4)]
+    a11, a22, tm, inv_det = pl.mode_diag(K)
+
+    def D_inv(r):
+        ru, rp = r[0], r[1]
+        yu = (a22 * ru + tm * rp) * inv_det
+        yp = (a11 * rp - tm * ru) * inv_det
+        return torch.stack([yu, yp])
+
+    def extract(yu, yp):
+        return (
+            torch.sum(phi_uNm1[:, None] * yu, dim=0).real,
+            torch.sum(phi_uNm2[:, None] * yu, dim=0).real,
+            torch.sum(phi_p0[:, None] * yp, dim=0).real,
+            torch.sum(phi_p1[:, None] * yp, dim=0).real,
+        )
+
+    def A_hat(xi):
+        xu, xp = xi[0], xi[1]
+        du = a11 * xu - tm * xp
+        dp = tm * xu + a22 * xp
+        uNm1, uNm2, p0, p1 = extract(xu, xp)
+        out_u0 = m1 * (2.0 * uNm1 - uNm2) - kap1 * uNm2 + 0.5 * tm1 * p0
+        out_u1 = -mk1 * uNm1
+        out_pN1 = m1 * (2.0 * p0 - p1) - kap1 * p1 - 0.5 * tm1 * uNm1
+        out_pN2 = -mk1 * p0
+        du = du + psi_u0[:, None] * out_u0[None, :] + psi_u1[:, None] * out_u1[None, :]
+        dp = dp + psi_pNm1[:, None] * out_pN1[None, :] + psi_pNm2[:, None] * out_pN2[None, :]
+        return torch.stack([du, dp])
+
+    def wb_apply(r):
+        y = D_inv(r)
+        z = extract(y[0], y[1])
+        w = [sum(G[a][b] * z[b] for b in range(4)) for a in range(4)]
+        corr_u = psi_u0[:, None] * w[0][None, :] + psi_u1[:, None] * w[1][None, :]
+        corr_p = psi_pNm1[:, None] * w[2][None, :] + psi_pNm2[:, None] * w[3][None, :]
+        return y - D_inv(torch.stack([corr_u, corr_p]))
+
+    def solve(b):
+        b_hat = to_spectral(b)
+        x = wb_apply(b_hat)
+        for _ in range(refine):
+            x = x + wb_apply(b_hat - A_hat(x))
+        return from_spectral(x)
+
+    return solve
+
+
+def build_woodbury_solver(
+    op: AllAtOnceOperator,
+    *,
+    refine: int = 1,
+    layout=None,
+    time_transform: Optional[str] = None,
+    half_spectrum: Optional[bool] = None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Direct all-at-once solver ``b -> x`` via the rank-4 Woodbury identity
+    in ParaDiag-diagonalized coordinates, on the half spectrum, in plain
+    PyTorch. ``time_transform`` defaults to the packed FFT ('fft2')."""
+    require_full_fp32_matmul()
+    if layout is not None:
+        raise NotImplementedError(
+            "the sharded Woodbury solve is not ported yet (ROADMAP Queue A item 14)"
+        )
+    if half_spectrum is False:
+        raise NotImplementedError(
+            "the full-spectrum Woodbury solve is not ported yet (ROADMAP Queue A "
+            "item 2); the half-spectrum solve is the default"
+        )
+    time_transform = "fft2" if time_transform is None else time_transform
+    return _build_woodbury_half(op, _spectral_plan(op), refine, time_transform=time_transform)
+
+
+# --------------------------------------------------------------------------
+# Host-side float64 residual (accuracy oracle for float32 device solves)
+# --------------------------------------------------------------------------
+
+
+def _np_dst_axis(g: np.ndarray, ax: int) -> np.ndarray:
+    """DST-I along ``ax`` via the odd-extension FFT identity (numpy, host)."""
+    g = np.moveaxis(g, ax, -1)
+    n = g.shape[-1]
+    z = np.zeros(g.shape[:-1] + (1,), g.dtype)
+    ext = np.concatenate([z, g, z, -g[..., ::-1]], axis=-1)
+    out = 0.5j * np.fft.fft(ext, axis=-1)[..., 1 : n + 1]
+    if not np.iscomplexobj(g):
+        out = out.real
+    return np.moveaxis(out, -1, ax)
+
+
+def spectral_relative_residual(op: AllAtOnceOperator, x, b) -> float:
+    """``||A x - b|| / ||b||`` evaluated in float64 numpy on the host, in
+    spectral coordinates (the combined transform is a scalar multiple of a
+    unitary, so the ratio equals the physical one to rounding). It sees the
+    true residual of a float32 solution, below the float32 matvec's own
+    cancellation noise: the accuracy gate of float32 solves."""
+    pl = _spectral_plan(op)
+    dim = op.space.dim
+    N_t = pl.N_t
+
+    def to_spec(v):
+        v = np.fft.ifft(np.asarray(v, np.float64), axis=1)
+        g = v.reshape(v.shape[:-1] + op.space.grid_shape)
+        for ax in range(-dim, 0):
+            g = _np_dst_axis(g, ax)
+        return g.reshape(v.shape)
+
+    xh, bh = to_spec(x), to_spec(b)
+    a11 = pl.a11_h
+    a22 = np.conj(a11)
+    tm = pl.theta * pl.muM64[None, :]
+    m1, kap1 = pl.muM64, pl.c * pl.muK64
+    tm1, mk1 = pl.theta * pl.muM64, pl.muM64 + pl.c * pl.muK64
+    k = np.arange(N_t)
+    phi = lambda i: np.exp(-2j * np.pi * i * k / N_t)
+    psi = lambda i: np.exp(2j * np.pi * i * k / N_t) / N_t
+
+    xu, xp = xh[0], xh[1]
+    du = a11 * xu - tm * xp
+    dp = tm * xu + a22 * xp
+    uNm1 = phi(N_t - 1) @ xu
+    uNm2 = phi(N_t - 2) @ xu
+    p0 = phi(0) @ xp
+    p1 = phi(1) @ xp
+    du = du + np.outer(psi(0), m1 * (2.0 * uNm1 - uNm2) - kap1 * uNm2 + 0.5 * tm1 * p0)
+    du = du + np.outer(psi(1), -mk1 * uNm1)
+    dp = dp + np.outer(psi(N_t - 1), m1 * (2.0 * p0 - p1) - kap1 * p1 - 0.5 * tm1 * uNm1)
+    dp = dp + np.outer(psi(N_t - 2), -mk1 * p0)
+    r = np.stack([du, dp]) - bh
+    return float(np.linalg.norm(r.ravel()) / np.linalg.norm(bh.ravel()))

@@ -1,0 +1,121 @@
+"""PyTorch port vs JAX package: the P1 space (stencils, sine transform,
+spectrum) and the all-at-once operator and right-hand side, on the same
+seeded numpy inputs, in float64 on the CPU. Tolerance: relative max-abs
+1e-12 (``|a - b|.max() <= tol * |a|.max()``, a the JAX result)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from optimal_control_paradiag_torch.fem.space import make_space as t_make_space
+from optimal_control_paradiag_torch.ops.allatonce import build_operator as t_build_operator
+from optimal_control_paradiag_torch.ops.allatonce import build_rhs as t_build_rhs
+from optimal_control_paradiag_tpu.fem.space import make_space as j_make_space
+from optimal_control_paradiag_tpu.ops.allatonce import build_operator as j_build_operator
+from optimal_control_paradiag_tpu.ops.allatonce import build_rhs as j_build_rhs
+
+torch.set_num_threads(1)
+
+TOL = 1e-12
+SPACES = [
+    dict(dim=1, N_x=17, mass="consistent"),
+    dict(dim=1, N_x=16, mass="lumped"),
+    dict(dim=2, N_x=7, mass="lumped"),
+    dict(dim=2, N_x=6, mass="consistent"),
+]
+IDS = ["1d-consistent", "1d-lumped", "2d-lumped", "2d-consistent"]
+
+
+def _assert_close(ref, got, tol=TOL):
+    ref, got = np.asarray(ref), np.asarray(got)
+    assert ref.shape == got.shape
+    assert np.abs(ref - got).max() <= tol * np.abs(ref).max()
+
+
+def _spaces(kw):
+    return j_make_space(**kw), t_make_space(**kw, dtype=torch.float64, device="cpu")
+
+
+@pytest.mark.parametrize("kw", SPACES, ids=IDS)
+def test_stencils_match_jax(kw):
+    js, ts = _spaces(kw)
+    x = np.random.default_rng(0).standard_normal((3, js.n))
+    xt = torch.from_numpy(x)
+    _assert_close(js.apply_mass(jnp.asarray(x)), ts.apply_mass(xt))
+    _assert_close(js.apply_stiffness(jnp.asarray(x)), ts.apply_stiffness(xt))
+    _assert_close(js.apply_mass_host_f64(x), ts.apply_mass_host_f64(x))
+    _assert_close(js.apply_stiffness_host_f64(x), ts.apply_stiffness_host_f64(x))
+
+
+@pytest.mark.parametrize("kw", SPACES, ids=IDS)
+def test_sine_transform_matches_jax(kw):
+    js, ts = _spaces(kw)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 5, js.n))
+    z = x + 1j * rng.standard_normal(x.shape)
+    _assert_close(js.dst_matrix, ts.dst_matrix)
+    _assert_close(js.dst(jnp.asarray(x)), ts.dst(torch.from_numpy(x)))
+    _assert_close(js.idst(jnp.asarray(x)), ts.idst(torch.from_numpy(x)))
+    _assert_close(js.dst(jnp.asarray(z)), ts.dst(torch.from_numpy(z)))
+    # DST-I is its own inverse up to the idst scale
+    _assert_close(x, ts.idst(ts.dst(torch.from_numpy(x))))
+
+
+@pytest.mark.parametrize("kw", SPACES, ids=IDS)
+def test_spectrum_coords_interpolate_match_jax(kw):
+    js, ts = _spaces(kw)
+    (jM, jK), (tM, tK) = js.spectrum, ts.spectrum
+    _assert_close(jK, tK)
+    assert (jM is None) == (tM is None) == (not ts.diagonalizable)
+    if jM is not None:
+        _assert_close(jM, tM)
+    for jc, tc in zip(js.coords, ts.coords):
+        _assert_close(jc, tc)
+    fn = lambda *xy: np.sin(np.pi * xy[0]) * (1.0 + sum(xy))
+    _assert_close(js.interpolate(fn), ts.interpolate(fn))
+
+
+@pytest.mark.parametrize("kw", SPACES, ids=IDS)
+@pytest.mark.parametrize("scaled,gamma", [(True, 0.5), (False, 2.0)])
+def test_operator_and_rhs_match_jax(kw, scaled, gamma):
+    js, ts = _spaces(kw)
+    N_t, dt = 7, 0.3
+    jop = j_build_operator(js, N_t, dt, gamma, scaled=scaled)
+    top = t_build_operator(ts, N_t, dt, gamma, scaled=scaled)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, N_t, js.n))
+    _assert_close(jop.matvec(jnp.asarray(x)), top.matvec(torch.from_numpy(x)))
+    _assert_close(jop.matvec_host_f64(x), top.matvec_host_f64(x))
+    f, g = rng.standard_normal((2, N_t, js.n))
+    u0, u1 = rng.standard_normal((2, js.n))
+    _assert_close(
+        j_build_rhs(jop, *(jnp.asarray(a) for a in (f, g, u0, u1))),
+        t_build_rhs(top, *(torch.from_numpy(a) for a in (f, g, u0, u1))),
+    )
+
+
+def test_float32_stencils_stay_float32():
+    ts = t_make_space(dim=1, N_x=9, dtype=torch.float32, device="cpu")
+    x = torch.ones(4, ts.n, dtype=torch.float32)
+    for y in (ts.apply_mass(x), ts.apply_stiffness(x), ts.dst(x), ts.idst(x)):
+        assert y.dtype == torch.float32
+    op = t_build_operator(ts, 4, 0.1, 1.0)
+    assert op.matvec(torch.ones(2, 4, ts.n, dtype=torch.float32)).dtype == torch.float32
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(dst_method="fft"), dict(dst_method="mxu4"), dict(dst_precision="high")],
+    ids=["fft", "mxu4", "high"],
+)
+def test_unported_transform_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_make_space(dim=1, N_x=8, **kw)
+
+
+def test_auto_dst_past_budget_raises():
+    # float64, n1d = 2900: 67 MB dense matrix, past the 64 MB 'auto' budget
+    ts = t_make_space(dim=1, N_x=2901, dtype=torch.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ts.dst(torch.zeros(1, ts.n, dtype=torch.float64))
