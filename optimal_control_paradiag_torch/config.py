@@ -29,9 +29,9 @@ class ProblemConfig:
       mass: 'consistent' P1 mass or 'lumped' (row-sum) mass.
       dtype: real torch dtype of the system (float32 or float64); complex
         work uses the matching complex dtype.
-      dst_precision: 'highest' (full float32 matmul DST) or 'high'. 'high'
-        is only valid together with polish, which the port does not have
-        yet: the port raises for it.
+      dst_precision: 'highest' (full float32 matmul DST) or 'high'. In the
+        JAX package 'high' is the bf16x3 matmul (valid with polish); torch's
+        'high' is TF32, a different algorithm, so the port raises for it.
       dst_method: sine-transform algorithm, 'auto' | 'matmul' | 'fft' |
         'mxu4'. The port implements the matmul ('auto' up to the 64 MB
         matrix budget) and raises for the rest.
@@ -74,10 +74,12 @@ class ProblemConfig:
 class SolverConfig:
     """Solver options; the same fields as the JAX package's ``SolverConfig``.
 
-    The port runs ``method='woodbury'`` (the rank-4 Sherman-Morrison-Woodbury
-    direct solve in ParaDiag-diagonalized coordinates) with ``refine``
-    spectral defect-correction steps; ``use_pallas=True`` routes it through
-    the fused CUDA kernel (``paradiag/cuda_woodbury.py``). The other fields
+    The port runs ``method='woodbury'`` (the Sherman-Morrison-Woodbury direct
+    solve in ParaDiag-diagonalized coordinates, rank 4 for the wave family
+    and rank 2 for the heat family) with ``refine`` spectral and ``polish``
+    physical-space defect-correction steps; ``use_pallas=True`` routes it
+    through the family's fused CUDA kernel (``paradiag/cuda_woodbury.py``,
+    ``paradiag/cuda_heat.py``). The other fields
     are validated as in the JAX package and read by methods still to be
     ported (ROADMAP Queue A).
     """

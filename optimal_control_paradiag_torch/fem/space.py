@@ -102,8 +102,9 @@ class P1Space:
             )
         if self.dst_precision != "highest":
             raise NotImplementedError(
-                "dst_precision='high' is only valid together with polish, which is "
-                "not ported yet (ROADMAP Queue A items 2-3, deferred polish)"
+                "dst_precision='high' is not ported yet (ROADMAP Queue A, deferred "
+                "transforms): its meaning is the bf16x3 matmul, and torch's 'high' "
+                "float32 matmul precision is TF32, a different algorithm"
             )
 
     @property
@@ -164,6 +165,22 @@ class P1Space:
         acc = 4.0 * g
         for sy, sx in ((0, 1), (0, -1), (1, 0), (-1, 0)):
             acc = acc - shift(shift(g, sx, -1), sy, -2)
+        return acc.reshape(x.shape)
+
+    def apply_stiffness_nested(self, x: torch.Tensor) -> torch.Tensor:
+        """K @ x as summed first differences, ``(x_j - x_{j-1}) + (x_j -
+        x_{j+1})``: algebraically :meth:`apply_stiffness`, but every
+        intermediate stays at the scale of the answer on smooth fields
+        (adjacent-value subtraction is exact by Sterbenz), so the float32
+        rounding noise drops by ~1/h. The physical-space defect correction
+        (``AllAtOnceOperator.matvec_accurate``) measures defects with it."""
+        h = self.h
+        if self.dim == 1:
+            return (1.0 / h) * ((x - shift(x, 1, -1)) + (x - shift(x, -1, -1)))
+        g = x.reshape(x.shape[:-1] + self.grid_shape)
+        sh = lambda sy, sx: shift(shift(g, sx, -1), sy, -2)
+        acc = (g - sh(0, 1)) + (g - sh(0, -1))
+        acc = acc + (g - sh(1, 0)) + (g - sh(-1, 0))
         return acc.reshape(x.shape)
 
     def apply_mass_host_f64(self, x: np.ndarray) -> np.ndarray:

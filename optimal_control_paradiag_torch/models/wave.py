@@ -3,8 +3,8 @@
 The counterpart of ``optimal_control_paradiag_tpu/models/wave.py``: space and
 operator setup, the manufactured data (f, g, u0, u1), the right-hand side,
 the solve, and validation against the manufactured solution. The port has
-the diagonalizable ``method='woodbury'`` branch; the other methods raise
-``NotImplementedError`` naming their ROADMAP item.
+the diagonalizable ``method='woodbury'`` branch, with ``polish``; the other
+methods raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,10 +21,11 @@ from optimal_control_paradiag_torch.fem.space import P1Space, make_space
 from optimal_control_paradiag_torch.models.analytic import manufactured
 from optimal_control_paradiag_torch.ops.allatonce import build_operator, build_rhs
 from optimal_control_paradiag_torch.paradiag.spectral import (
+    build_polished_solver,
     build_woodbury_solver,
     spectral_relative_residual,
 )
-from optimal_control_paradiag_torch.utils.constants import resolve_device, to_device
+from optimal_control_paradiag_torch.utils.constants import host_f64, resolve_device, to_device
 
 # Where each method that the port does not have yet stands in ROADMAP Queue A.
 _NOT_PORTED = {
@@ -33,12 +34,6 @@ _NOT_PORTED = {
     "spectral": "item 8 (MINRES, spectral GMRES and direct)",
     "direct": "item 8 (MINRES, spectral GMRES and direct)",
 }
-
-
-def _np64(t) -> np.ndarray:
-    if isinstance(t, torch.Tensor):
-        t = t.detach().cpu().numpy()
-    return np.asarray(t, dtype=np.float64)
 
 
 class WaveSolution(NamedTuple):
@@ -129,11 +124,6 @@ class WaveControlProblem:
                 "the Woodbury solve of non-sine-diagonalizable spaces (2D consistent "
                 "mass) is not ported yet: ROADMAP Queue A item 9"
             )
-        if solver.polish:
-            raise NotImplementedError(
-                "polish (physical-space defect correction) is not ported yet: "
-                "ROADMAP Queue A items 2-3"
-            )
         if solver.use_pallas:
             from optimal_control_paradiag_torch.paradiag.cuda_woodbury import (
                 build_cuda_woodbury_solver,
@@ -143,6 +133,9 @@ class WaveControlProblem:
             wb = build_cuda_woodbury_solver(op, refine=solver.refine)
         else:
             wb = build_woodbury_solver(op, refine=solver.refine)
+        if solver.polish:
+            # physical-space defect correction on top of either solve
+            wb = build_polished_solver(op, polish=solver.polish, base_solver=wb)
 
         def run(b, x0=None):
             return wb(b), None
@@ -179,8 +172,8 @@ class WaveControlProblem:
         the true residual of float32 solutions, below the float32 matvec's
         cancellation noise floor (~1e-3)."""
         scale = math.sqrt(self.config.gamma) if self.config.scaled else 1.0
-        x = np.stack([_np64(sol.u) * scale, _np64(sol.p)])
-        return spectral_relative_residual(self.operator, x, _np64(self.rhs))
+        x = np.stack([host_f64(sol.u) * scale, host_f64(sol.p)])
+        return spectral_relative_residual(self.operator, x, host_f64(self.rhs))
 
     # ------------------------------------------------------------ validation
 
@@ -195,11 +188,11 @@ class WaveControlProblem:
         """
         cfg = self.config
         n = self.space.n
-        u = _np64(sol.u)
-        p = _np64(sol.p)
+        u = host_f64(sol.u)
+        p = host_f64(sol.p)
         scale = math.sqrt(cfg.gamma) if cfg.scaled else 1.0
-        u0 = _np64(self._data["u0"]) / scale
-        u1 = _np64(self._data["u1"]) / scale
+        u0 = host_f64(self._data["u0"]) / scale
+        u1 = host_f64(self._data["u1"]) / scale
         u_out = np.zeros((cfg.N_t + 1, n))
         p_out = np.zeros((cfg.N_t + 1, n))
         u_out[0] = u0
@@ -219,7 +212,7 @@ class WaveControlProblem:
         u_out, _ = self.output_trajectories(sol)
         errs = []
         for i in range(2, cfg.N_t + 1):
-            ua = _np64(self.space.interpolate(lambda *x: self.analytic.u(*x, i * cfg.dt)))
+            ua = host_f64(self.space.interpolate(lambda *x: self.analytic.u(*x, i * cfg.dt)))
             errs.append(np.linalg.norm(u_out[i] - ua))
         return float(np.max(errs))
 
@@ -228,10 +221,10 @@ class WaveControlProblem:
         equations place it (``u_sol[j] ~ u(t_{j+1})``); max over j of the
         nodal-l2 u-error."""
         cfg = self.config
-        u = _np64(sol.u)
+        u = host_f64(sol.u)
         errs = []
         for j in range(cfg.N_t):
-            ua = _np64(
+            ua = host_f64(
                 self.space.interpolate(lambda *x: self.analytic.u(*x, (j + 1) * cfg.dt))
             )
             errs.append(np.linalg.norm(u[j] - ua))

@@ -32,7 +32,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from optimal_control_paradiag_torch.cuda_build import load_library
+from optimal_control_paradiag_torch.cuda_build import launch_fused_solve, load_library
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
 from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator
 from optimal_control_paradiag_torch.paradiag.spectral import (
@@ -199,36 +199,23 @@ def fused_woodbury(b_hat: torch.Tensor, consts: WoodburyConstants, refine: int) 
         return fused_woodbury_reference(b_hat, consts, refine)
     if b_hat.device.type != "cuda":
         raise ValueError(f"fused_woodbury runs on CUDA or CPU tensors, got {b_hat.device}")
-    real = {torch.complex64: torch.float32, torch.complex128: torch.float64}.get(b_hat.dtype)
-    K, n = consts.a11r.shape
-    if real is None or b_hat.shape != (2, K, n) or not b_hat.is_contiguous() or b_hat.is_conj():
-        raise ValueError(
-            f"b_hat must be a contiguous, resolved (2, {K}, {n}) complex tensor; "
-            f"got {tuple(b_hat.shape)} {b_hat.dtype}"
-        )
-    for name in ("a11r", "a11i", "invdet", "colc", "gc", "phases"):
-        t = getattr(consts, name)
-        if t.dtype != real or t.device != b_hat.device or not t.is_contiguous():
-            raise ValueError(f"constant {name} must be contiguous {real} on {b_hat.device}")
-    if consts.colc.shape != (4, n) or consts.gc.shape != (16, n) or consts.phases.shape != (K, 16):
-        raise ValueError("packed constants have inconsistent shapes")
-    if not isinstance(refine, int) or refine < 0:
-        raise ValueError(f"refine must be a non-negative int, got {refine!r}")
-
     lib = _kernel_library()
-    fn = lib.woodbury_fused_f32 if real == torch.float32 else lib.woodbury_fused_f64
-    x = torch.empty_like(b_hat)
-    err = fn(
-        b_hat.data_ptr(), x.data_ptr(),
-        consts.a11r.data_ptr(), consts.a11i.data_ptr(), consts.invdet.data_ptr(),
-        consts.colc.data_ptr(), consts.gc.data_ptr(), consts.phases.data_ptr(),
-        K, n, refine, b_hat.device.index if b_hat.device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(b_hat.device).cuda_stream,
+    x = launch_fused_solve(
+        "woodbury_fused",
+        {torch.float32: lib.woodbury_fused_f32, torch.float64: lib.woodbury_fused_f64},
+        lib.woodbury_error_string,
+        b_hat,
+        consts,
+        {
+            "a11r": ("K", "n"),
+            "a11i": ("K", "n"),
+            "invdet": ("K", "n"),
+            "colc": (4, "n"),
+            "gc": (16, "n"),
+            "phases": ("K", 16),
+        },
+        refine,
     )
-    if err != 0:
-        raise RuntimeError(
-            f"woodbury_fused launch failed: {lib.woodbury_error_string(err).decode()} ({err})"
-        )
     fused_woodbury.launches += 1
     return x
 

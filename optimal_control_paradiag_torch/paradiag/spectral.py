@@ -14,7 +14,8 @@ diagonal coefficients. Per wavenumber j the correction has rank 4, so
 with the capacity matrices G_j computed in float64 on the host. The solve is
 two transforms plus O(1) elementwise passes; ``refine`` defect-correction
 steps (one exact A_hat apply plus one Woodbury apply each) polish the
-working-precision rounding.
+working-precision rounding; :func:`build_polished_solver` adds
+physical-space defect correction on top of any such solve.
 
 The real state has a Hermitian time spectrum, so everything runs on the
 ``K = N_t//2 + 1`` rfft bins: extractions pair conjugate bins (weight 2,
@@ -346,6 +347,77 @@ def build_woodbury_solver(
         )
     time_transform = "fft2" if time_transform is None else time_transform
     return _build_woodbury_half(op, _spectral_plan(op), refine, time_transform=time_transform)
+
+
+# --------------------------------------------------------------------------
+# Physical-space polish
+# --------------------------------------------------------------------------
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Knuth two-sum: ``s + e == a + b`` exactly, ``s = fl(a + b)``, any
+    magnitudes. Eager PyTorch evaluates each operation as written, so no
+    barrier is needed; do not put this under ``torch.compile``, whose
+    algebraic simplification may cancel the error terms (their purpose)."""
+    s = a + b
+    v = s - a
+    e = (a - (s - v)) + (b - v)
+    return s, e
+
+
+def build_polished_solver(
+    op,
+    *,
+    refine: int = 1,
+    polish: int = 1,
+    dword: bool = False,
+    time_transform: Optional[str] = None,
+    half_spectrum: Optional[bool] = None,
+    base_solver: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> Callable[[torch.Tensor], object]:
+    """Woodbury direct solve + PHYSICAL-space defect correction: the float32
+    accuracy path past the spectral ``refine`` ladder, which cannot see the
+    rounding of the inverse transforms and of the float32 solution itself.
+
+    ``op`` is any object with ``matvec`` and ``matvec_accurate`` (an
+    :class:`AllAtOnceOperator`, or a heat problem). Each ``polish`` step
+    measures the defect with the cancellation-aware ``matvec_accurate`` and
+    keeps the solution as an unevaluated two-float pair ``(x, e)``:
+
+        r = (b - A_acc x) - A e
+        d = W r + e
+        x, e = two_sum(x, d)
+
+    ``dword=False`` returns ``x`` (its true residual on the float32
+    representation floor); ``dword=True`` returns ``(x, e)``, whose float64
+    sum carries the residual below that floor. In float64 polish is a no-op
+    to rounding.
+
+    ``base_solver`` substitutes a prebuilt direct solve ``b -> x`` for ``W``
+    (the fused CUDA kernel, or a heat solve); ``refine``, ``time_transform``
+    and ``half_spectrum`` configure the default-built ``W`` only, so
+    combining them with ``base_solver`` is an error."""
+    if base_solver is not None and (
+        refine != 1 or time_transform is not None or half_spectrum is not None
+    ):
+        raise ValueError(
+            "base_solver carries its own refine/time_transform/half_spectrum; "
+            "do not combine it with those arguments"
+        )
+    W = base_solver or build_woodbury_solver(
+        op, refine=refine, time_transform=time_transform, half_spectrum=half_spectrum
+    )
+
+    def solve(b: torch.Tensor):
+        x = W(b)
+        e = torch.zeros_like(x)
+        for _ in range(polish):
+            r = (b - op.matvec_accurate(x)) - op.matvec(e)
+            d = W(r) + e
+            x, e = _two_sum(x, d)
+        return (x, e) if dword else x
+
+    return solve
 
 
 # --------------------------------------------------------------------------

@@ -32,6 +32,14 @@ def host_const(x, dtype) -> np.ndarray:
     return np.asarray(x, dtype=np_dtype(dtype))
 
 
+def host_f64(t) -> np.ndarray:
+    """A tensor (on any device) or array as a float64 host numpy array: the
+    input of the float64 residual oracles and error metrics."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, dtype=np.float64)
+
+
 def to_device(x, dtype, device) -> torch.Tensor:
     """Cast ``x`` to ``dtype`` in numpy, then copy it to ``device`` (always
     a copy: the tensor never shares memory with ``x``)."""

@@ -8,7 +8,8 @@ the methods not ported yet.
 
 Tolerances: u and p relative max-abs 1e-11; error_aligned 1e-10 absolute;
 the port's residual_norm / ||b|| below 1e-10; the two float64 residual
-oracles on one solution 1e-12 absolute."""
+oracles on one solution 1e-12 absolute. The polish path is held against
+the JAX package in tests/test_torch_polish.py."""
 
 import dataclasses
 import os
@@ -21,6 +22,7 @@ import torch
 
 import optimal_control_paradiag_tpu as J
 from optimal_control_paradiag_torch import (
+    HeatControlProblem,
     ProblemConfig,
     SolverConfig,
     WaveControlProblem,
@@ -100,11 +102,14 @@ def test_float32_dtype_discipline():
 def test_port_imports_no_jax():
     code = (
         "import sys, torch\n"
-        "from optimal_control_paradiag_torch import ProblemConfig, SolverConfig, WaveControlProblem\n"
+        "from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, SolverConfig, WaveControlProblem\n"
         "import optimal_control_paradiag_torch.interop\n"
         "p = WaveControlProblem(ProblemConfig(N_x=8, N_t=6), device='cpu')\n"
         "s = p.solve(SolverConfig(method='woodbury', use_pallas=True))\n"
         "assert p.relative_residual_f64(s) < 1e-10\n"
+        "h = HeatControlProblem(ProblemConfig(N_x=8, N_t=6), device='cpu')\n"
+        "s = h.solve(SolverConfig(method='woodbury', use_pallas=True, polish=1))\n"
+        "assert h.relative_residual_f64(s) < 1e-10\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'optimal_control_paradiag_tpu')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -126,20 +131,20 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize(
-    "cfg,solver",
+    "cls,cfg,solver",
     [
-        (reference_1d_default(), SolverConfig()),
-        (reference_1d_default(), SolverConfig(method="minres")),
-        (reference_1d_default(), SolverConfig(method="spectral")),
-        (reference_1d_default(), SolverConfig(method="direct")),
-        (reference_1d_default(), SolverConfig(method="woodbury", polish=1)),
-        (ProblemConfig(N_x=6, N_t=6, dim=2), SolverConfig(method="woodbury")),
+        (WaveControlProblem, reference_1d_default(), SolverConfig()),
+        (WaveControlProblem, reference_1d_default(), SolverConfig(method="minres")),
+        (WaveControlProblem, reference_1d_default(), SolverConfig(method="spectral")),
+        (WaveControlProblem, reference_1d_default(), SolverConfig(method="direct")),
+        (HeatControlProblem, reference_1d_default(), SolverConfig(method="gmres")),
+        (WaveControlProblem, ProblemConfig(N_x=6, N_t=6, dim=2), SolverConfig(method="woodbury")),
     ],
-    ids=["gmres", "minres", "spectral", "direct", "polish", "2d-consistent"],
+    ids=["gmres", "minres", "spectral", "direct", "heat-gmres", "2d-consistent"],
 )
-def test_unported_paths_raise(cfg, solver):
+def test_unported_paths_raise(cls, cfg, solver):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        WaveControlProblem(cfg, device="cpu").solve(solver)
+        cls(cfg, device="cpu").solve(solver)
 
 
 def test_config_validation_matches_jax():
