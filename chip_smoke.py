@@ -7,18 +7,26 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``, and no network. Phases, each of which fails the run:
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
-2. build the fused Woodbury kernel from ``csrc/woodbury.cu`` (nvcc);
-3. hold the kernel against its plain PyTorch twin on the card, at the main
-   path's shapes (K = 513, n = 2047): float32 and float64;
+2. build the fused Woodbury kernels from ``csrc/woodbury.cu`` (nvcc): the
+   slab kernel and the streaming kernel; print each one's ptxas registers
+   and spills;
+3. hold both kernels against their plain PyTorch twin on the card, at the
+   main path's shapes (K = 513, n = 2047), float32 and float64, on the
+   main-path input and on a seeded random one, with the schedule each
+   dtype takes (columns per block, shared memory); and the schedule's own
+   choice at a long K (N_t = 10000, T = 20, float64), the streaming kernel;
 4. drive the main path once through the user entry point at the headline
    shape (N_x = 2048, N_t = 1024, float32, ``method='woodbury',
    use_pallas=True``), with the kernel's launch count set to 0 just before
    and read just after, and gate it on the float64 oracle residual
    (<= 8e-4); solve the reference's default problem in float64 on the card
    and on the CPU and require the same error;
-5. time the solve, the kernel, its twin, the DST matmul and the packed FFT
+5. time the solve, the slab kernel, the streaming kernel, the slab narrowed
+   to two columns per block (two blocks per SM), the twin, the DST matmul and the packed FFT
    round trip with CUDA events (median of 20 runs after warm-up, each run
-   started with a cold L2 cache);
+   started with a cold L2 cache; both kernels warm too); build the slab
+   kernel's profile variant (``-DWOODBURY_PROFILE``) and print the median
+   clock64 cycles of each phase of a block (copies, passes, store);
 6. build the heat family's fused kernel from ``csrc/heat_woodbury.cu``;
 7. hold it against its plain twin at both heat shapes (1D, K = 513,
    n = 2047; 2D lumped, K = 33, n = 65025), on the main-path input and on a
@@ -41,12 +49,14 @@ device line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import unittest.mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -138,6 +148,58 @@ def rel_err(torch, a, b) -> float:
     return (a - b).abs().max().item() / b.abs().max().item()
 
 
+def print_ptxas(log: str) -> None:
+    """ptxas's registers and spills of each kernel in a build log, with the
+    kernel's name (template arguments: real type f/d, then lanes)."""
+    import re
+
+    name = "?"
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
+        if m:
+            d = re.search(r"\d+([a-z_]+_kernel)I([fd])(?:Li(\d+)E)?", m.group(1))
+            name = f"{d.group(1)}<{d.group(2)}{',' + d.group(3) if d.group(3) else ''}>" if d else m.group(1)
+        elif "registers" in line or "spill" in line:
+            print(f"ptxas: {name}: {line.strip()}", flush=True)
+
+
+def slab_profile(torch, cw, b_hat, consts, sched) -> dict:
+    """Median clock64 cycles of each phase of a slab block, from the profile
+    build of ``csrc/woodbury.cu`` on the main path's input."""
+    import ctypes
+
+    import numpy as np
+
+    from optimal_control_paradiag_torch.cuda_build import NVCC_FLAGS, _nvcc, launch_fused_solve
+
+    csrc = os.path.join(HERE, "optimal_control_paradiag_torch", "csrc")
+    out = os.path.join(csrc, "_build", "woodbury-profile.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-DWOODBURY_PROFILE", "-o", out, os.path.join(csrc, cw.KERNEL_SOURCE)],
+                   check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(out)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.woodbury_slab_f32.argtypes = [p] * 8 + [i] * 8 + [p]
+    lib.woodbury_slab_f32.restype = i
+    lib.woodbury_error_string.argtypes = [i]
+    lib.woodbury_error_string.restype = ctypes.c_char_p
+    lib.woodbury_profile_read.argtypes = [p]
+    for _ in range(3):
+        launch_fused_solve("woodbury_slab", {torch.float32: lib.woodbury_slab_f32}, lib.woodbury_error_string,
+                           b_hat, consts, cw._CONST_SHAPES, 1,
+                           (sched.cols, sched.lanes, sched.stride, sched.smem_bytes))
+        torch.cuda.synchronize()
+    marks = np.zeros((8192, 8), dtype=np.int64)
+    if lib.woodbury_profile_read(marks.ctypes.data) != 0:
+        raise RuntimeError("reading the slab profile failed")
+    marks = marks[: -(-consts.a11r.shape[1] // sched.cols)]
+    steps = np.diff(marks, axis=1)
+    names = ("copy_start", "copy_wait", "pass1", "pass2", "pass3", "pass4", "store")
+    total = float(np.median(marks[:, 7] - marks[:, 0]))
+    return {"blocks": int(marks.shape[0]), "block_cycles_median": total,
+            **{f"{k}_cycles": float(np.median(steps[:, j])) for j, k in enumerate(names)}}
+
+
 def main() -> int:
     import torch
 
@@ -162,6 +224,7 @@ def main() -> int:
     from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
     from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
     from optimal_control_paradiag_torch.paradiag.spectral import (
+        _capacity_matrices,
         build_polished_solver,
         spectral_relative_residual,
     )
@@ -185,22 +248,28 @@ def main() -> int:
     built = load_library(cw.KERNEL_SOURCE)
     print(json.dumps({"phase": "build", "source": cw.KERNEL_SOURCE,
                       "nvcc_s": built.seconds, "load_s": time.perf_counter() - t0}), flush=True)
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip(), flush=True)
+    print_ptxas(built.log)
 
-    # 3. kernel vs twin at the main path's shapes
+    # 3. both kernels vs the twin at the main path's shapes
     prob = WaveControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float32), device="cuda")
     op = prob.operator
     consts = cw.pack_constants(op)
     K, n = consts.a11r.shape
     b_hat = time_rfft_conj_packed(prob.space.dst(prob.rhs), N_T)  # the main path's kernel input
+    kernels = {"slab": cw.fused_woodbury, "streaming": cw._fused_woodbury_streaming}
+    for itemsize in (4, 8):
+        sched = cw.woodbury_schedule(K, n, itemsize)
+        print(json.dumps({"phase": "woodbury_schedule", "K": K, "n": n, "itemsize": itemsize,
+                          **dataclasses.asdict(sched), "blocks": -(-n // sched.cols)}), flush=True)
+        if sched.kind != "slab":
+            return fail(f"the main path's shape takes the {sched.kind} schedule, not the slab")
     x_kernel = cw.fused_woodbury(b_hat, consts, 1)
+    x_stream = cw._fused_woodbury_streaming(b_hat, consts, 1)
     torch.cuda.synchronize()
     x_twin = cw.fused_woodbury_reference(b_hat, consts, 1)
-    err_main = rel_err(torch, x_kernel, x_twin)
     max_abs_err = (x_kernel - x_twin).abs().max().item()
-    checks = [("float32 main-path input", err_main, TOL_F32)]
+    checks = [("slab", "float32 main-path input", K, n, rel_err(torch, x_kernel, x_twin), TOL_F32),
+              ("streaming", "float32 main-path input", K, n, rel_err(torch, x_stream, x_twin), TOL_F32)]
     prob64 = WaveControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float64), device="cuda")
     consts64 = cw.pack_constants(prob64.operator)
     b_hat64 = time_rfft_conj_packed(prob64.space.dst(prob64.rhs), N_T)
@@ -211,13 +280,36 @@ def main() -> int:
         ("float64 main-path input", b_hat64, consts64, TOL_F64),
         ("float64 random", noise.cuda(), consts64, TOL_F64),
     ):
-        xk = cw.fused_woodbury(bh, c, 1)
-        torch.cuda.synchronize()
-        checks.append((label, rel_err(torch, xk, cw.fused_woodbury_reference(bh, c, 1)), tol))
+        x_ref = cw.fused_woodbury_reference(bh, c, 1)
+        for which, fn in kernels.items():
+            xk = fn(bh, c, 1)
+            torch.cuda.synchronize()
+            checks.append((which, label, K, n, rel_err(torch, xk, x_ref), tol))
+    # The schedule's own choice at a long K: 5001 bins, 440 KB per column in
+    # float64, over what a block may hold, at the headline's time step
+    # (T = 20). The imaginary part of its capacity matrices is 8.6e-11 of
+    # the real one, close to the plan's 1e-10 limit, so the real part is
+    # taken unchecked: the kernel and the twin compute the same function of
+    # any constants.
+    plong = WaveControlProblem(ProblemConfig(N_x=8, N_t=10000, T=20.0, dtype=torch.float64), device="cuda")
+    with unittest.mock.patch.object(cw, "_real_capacity_matrices", lambda pl: _capacity_matrices(pl).real):
+        clong = cw.pack_constants(plong.operator)
+    sched = cw.woodbury_schedule(*clong.a11r.shape, 8)
+    print(json.dumps({"phase": "woodbury_schedule", "K": clong.a11r.shape[0], "n": clong.a11r.shape[1],
+                      "itemsize": 8, **dataclasses.asdict(sched)}), flush=True)
+    if sched.kind != "streaming":
+        return fail(f"the long-K shape takes the {sched.kind} schedule, not the streaming one")
+    bl = time_rfft_conj_packed(plong.space.dst(plong.rhs), 10000)
+    xk = cw.fused_woodbury(bl, clong, 1)
+    torch.cuda.synchronize()
+    checks.append(("streaming (own choice)", "float64 main-path input, N_t = 10000, T = 20", *clong.a11r.shape,
+                   rel_err(torch, xk, cw.fused_woodbury_reference(bl, clong, 1)), TOL_F64))
+    del plong, clong, bl
     # How far each float32 solve lies from the float64 one on the same input.
     x_exact = cw.fused_woodbury_reference(b_hat.to(torch.complex128), consts64, 1)
     print(json.dumps({"phase": "float32_vs_float64", "K": K, "n": n,
                       "kernel_rel_err": rel_err(torch, x_kernel.to(torch.complex128), x_exact),
+                      "streaming_rel_err": rel_err(torch, x_stream.to(torch.complex128), x_exact),
                       "twin_rel_err": rel_err(torch, x_twin.to(torch.complex128), x_exact)}), flush=True)
     # Outside the main path (refine != 1), printed and not gated: how far the
     # kernel's summation order moves x on a random input.
@@ -229,12 +321,12 @@ def main() -> int:
             print(json.dumps({"phase": "reorder_sensitivity", "case": label, "refine": refine,
                               "rel_max_abs_err": rel_err(torch, xk, cw.fused_woodbury_reference(bh, c, refine)),
                               "gate": None}), flush=True)
-    del prob64, consts64, b_hat64, x_exact
-    for label, err, tol in checks:
-        print(json.dumps({"phase": "kernel_vs_twin", "case": label, "K": K, "n": n,
+    del prob64, consts64, b_hat64, x_exact, x_stream
+    for which, label, ck, cn, err, tol in checks:
+        print(json.dumps({"phase": "kernel_vs_twin", "kernel": which, "case": label, "K": ck, "n": cn,
                           "rel_max_abs_err": err, "tol": tol}), flush=True)
         if not err <= tol:
-            return fail(f"kernel disagrees with its twin ({label}): {err:.3e} > {tol:.0e}")
+            return fail(f"the {which} kernel disagrees with its twin ({label}): {err:.3e} > {tol:.0e}")
 
     # 4. the main path, through the user entry point
     cfg = SolverConfig(method="woodbury", use_pallas=True)
@@ -271,10 +363,18 @@ def main() -> int:
     plain_fn = prob.make_solver_fn(SolverConfig(method="woodbury", use_pallas=False))
     rhs = prob.rhs
     s = prob.space.dst(rhs)
+    # the slab narrowed to two columns per block, so that two blocks fit on an SM
+    two = cw.slab_schedule(K, 2, 4)
+    if not 2 * (two.smem_bytes + 1024) <= 228 * 1024:
+        return fail(f"the C = 2 slab takes {two.smem_bytes} B: two blocks no longer fit on an SM")
+    print(json.dumps({"phase": "woodbury_schedule", "K": K, "n": n, "itemsize": 4,
+                      **dataclasses.asdict(two), "blocks": -(-n // two.cols)}), flush=True)
     timings = {
         "solve_cuda_kernel": lambda: solve_fn(rhs),
         "solve_plain_torch": lambda: plain_fn(rhs),
         "woodbury_kernel": lambda: cw.fused_woodbury(b_hat, consts, 1),
+        "woodbury_kernel_streaming": lambda: cw._fused_woodbury_streaming(b_hat, consts, 1),
+        "woodbury_kernel_two_per_sm": lambda: cw._launch(b_hat, consts, 1, two),
         "woodbury_twin": lambda: cw.fused_woodbury_reference(b_hat, consts, 1),
         "dst_matmul": lambda: prob.space.dst(rhs),
         "packed_fft_roundtrip": lambda: time_irfft_conj_packed(time_rfft_conj_packed(s, N_T), N_T),
@@ -285,6 +385,14 @@ def main() -> int:
         med, lo, hi = device_ms(torch, fn, flush)
         ms[name] = med
         print(json.dumps({"timing": name, "clock": "device", "l2": "cold", "median_ms": med, "min_ms": lo,
+                          "max_ms": hi, "runs": RUNS, "card": smi}), flush=True)
+    print(json.dumps({"phase": "slab_profile", "K": K, "n": n, "dtype": "float32", **dataclasses.asdict(cw.woodbury_schedule(K, n, 4)),
+                      "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+                      **slab_profile(torch, cw, b_hat, consts, cw.woodbury_schedule(K, n, 4))}), flush=True)
+    for name in ("woodbury_kernel", "woodbury_kernel_streaming"):
+        med, lo, hi = device_ms(torch, timings[name], None)
+        ms[name + "_warm"] = med
+        print(json.dumps({"timing": name, "clock": "device", "l2": "warm", "median_ms": med, "min_ms": lo,
                           "max_ms": hi, "runs": RUNS, "card": smi}), flush=True)
     for name in ("solve_cuda_kernel", "solve_plain_torch"):
         med, lo, hi = wall_ms(torch, timings[name])
@@ -304,7 +412,11 @@ def main() -> int:
         # element) + A_hat and W again (140)
         **roofline(4 * (11 * K * n + 20 * n + 16 * K), K * n * (80 + 140 * 1)),
         "library_ms": None,
+        "streaming_ms": ms["woodbury_kernel_streaming"],
     }
+    if not ms["woodbury_kernel"] < ms["woodbury_kernel_streaming"]:
+        print(json.dumps({"phase": "warning", "what": "the slab kernel is not faster than the streaming one, L2 cold",
+                          "ms": ms["woodbury_kernel"], "streaming_ms": ms["woodbury_kernel_streaming"]}), flush=True)
     wave_rel, wave_prob = rel, prob
     del prob, consts, b_hat, x_kernel, x_twin, s
 
@@ -313,9 +425,7 @@ def main() -> int:
     built = load_library(ch.KERNEL_SOURCE)
     print(json.dumps({"phase": "build", "source": ch.KERNEL_SOURCE,
                       "nvcc_s": built.seconds, "load_s": time.perf_counter() - t0}), flush=True)
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip(), flush=True)
+    print_ptxas(built.log)
 
     # 7. heat kernel vs twin at both heat shapes, refine = 1 (the main path)
     heat = {}

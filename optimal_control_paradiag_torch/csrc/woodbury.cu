@@ -14,32 +14,89 @@
 // rank-1 injections, and A_hat = D plus the rank-4 boundary rows built from
 // m1, kap1, tm1, mk1. Complex arithmetic is split real, in the order of the
 // Pallas kernel body and of its PyTorch twin (cuda_woodbury.py:
-// fused_woodbury_reference).
+// fused_woodbury_reference); only the order of the sums over K differs.
+// Every reduction is formed from the working-dtype intermediates (no closed
+// form), so the defect correction sees the real rounding.
 //
 // Bound: bytes. Per (k, j) element the function reads b (4 reals) and three
-// constants and writes x (4 reals), and does ~220 flops (refine = 1): at
-// K = 513, n = 2047, float32 that is 46.2 MB against 0.23 GFLOP, two orders
-// of magnitude under the ridge of the card.
+// constants and writes x (4 reals): 11 reals, 44 B in float32, against
+// ~220 flops at refine = 1. At K = 513, n = 2047 that is 46.4 MB against
+// 0.23 GFLOP, two orders of magnitude under the ridge of the card: 13.9 us
+// at 3.35 TB/s.
 //
-// Schedule. The Pallas kernel holds a whole (K, 128) column slab of 11 arrays
-// in VMEM (2.9 MB at K = 513); a Hopper SM has 228 KB of shared memory. Each
-// column's work is a chain of reductions over K, each feeding a handful of
-// per-column scalars into the next: z = Phi* D^-1 b (4 values), then the
-// extraction of x inside A_hat (4), then z of D^-1 (b - A_hat x) (4). So the
-// kernel streams over K in 2 + 2 * refine passes and carries only those
-// scalars between passes; x lives in the output buffer between passes (16.8 MB
-// at the headline shape, L2-resident on the card). Every reduction is formed
-// from the working-dtype intermediates, as in the twin, so the defect
-// correction sees the real rounding.
+// Two kernels; cuda_woodbury.py:woodbury_schedule picks one from the shape.
 //
-// Layout. A block owns TJ = 16 adjacent columns (threadIdx.x, coalesced along
-// the row-major (K, n) arrays) and splits K across KS = 32 lanes
-// (threadIdx.y, bins k = ty, ty + KS, ...); the 4 partial sums of each
-// reduction meet in shared memory. At n = 2047 that is 128 blocks of 512
-// threads. The complex state is torch.view_as_real of a contiguous (2, K, n)
+// woodbury_slab_kernel (the rule). A block owns C adjacent columns and all K
+// bins of each. One load sweep copies the phase table and, for its columns,
+// b (both planes, as float2 / double2), a11r and a11i (as one pair) and
+// invdet into dynamic shared memory with cp.async, column index fastest so
+// that neighbouring threads read neighbouring addresses, every copy in
+// flight before one wait. x lives in the slab too: 11 reals per bin and
+// column (44 B float32, 88 B float64). The 2 + 2 * refine passes of the chain run from shared
+// memory, carrying only the per-column scalars between them (z -> w, the
+// four extractions -> r, z -> w); each pass overwrites x in the slab,
+// because each defect correction reads the x of the step before. One store
+// sweep, column fastest again, writes x to device memory once. So b and the
+// constants are read from device memory once and x written once, for any
+// refine. (Recomputing x = D^-1 b - D^-1 Psi w instead of keeping it would
+// save 16 B of shared memory per bin but hold only for refine <= 1; the
+// passes that read x are not what bounds the kernel, so it is not done.)
+//   Each column gets L K-lanes (bins k = lane, lane + L, ...). With L <= 32
+// they lie in one warp and the sums over K are xor-shuffle butterflies, no
+// block barrier; with L = 64, 128 (C = 2, 1) the warps of a column then meet
+// once in shared memory. The butterfly gives every lane the same sum
+// bitwise, so all lanes of a column agree on z, w and r. A block has 128
+// threads for C <= 4 and 256 above (C = 8: L = 32; C = 32: L = 8).
+//   The (K, 16) phase table is the same for every column. It is staged in the
+// slab, [bin][16 phases + 16 bytes of padding], copied and read 16 bytes at
+// a time (8 lanes reading pieces of 8 rows hit distinct banks). Read
+// through L1 from device memory instead, it is re-read from L2 for every
+// column: the first version of this kernel did so and was slower.
+//   C is the largest power of two <= 32 whose slab fits the 232,448 B a block
+// may use: headline float32 C = 8 (222.0 KB, one block per SM, 256 blocks),
+// float64 C = 2 (164.9 KB), wave 2D lumped (K = 33) C = 32. Wider is
+// faster on the H100 even at one block per SM (chip_smoke.py times C = 2 at
+// two blocks per SM beside it; PERF.md has the numbers): the load sweep,
+// about half the kernel's time, moves data in 4- and 8-byte copies of short
+// row pieces (the rows of the (K, n) arrays are not 16-byte aligned for
+// odd n), and wider pieces fetch more per request. Loading the next group
+// of columns while solving this one (persistent blocks with two slabs) was
+// tried and was not faster: the copies and the passes share the SM's
+// load/store path. The column stride in the slab is K padded to an odd
+// multiple of a small power of two, so that the columns one warp touches
+// fall in distinct banks (cuda_woodbury.py gives the rule). Blocks above
+// 48 KB opt in with cudaFuncSetAttribute, whose error is returned like the
+// launch's. Built with -DWOODBURY_PROFILE (chip_smoke.py does), the kernel
+// records clock64 at its phase boundaries for the first 8192 blocks.
+//
+// woodbury_streaming_kernel (long K). Where even C = 1 does not fit a block
+// (K > 1873 in float32, K > 1000 in float64), the slab schedule cannot run,
+// and this kernel, the first port of B1, does. It streams over K in
+// 2 + 2 * refine passes, re-reading b and the constants in each and keeping
+// x in the output buffer between passes. A block owns TJ = 16 adjacent
+// columns (threadIdx.x, coalesced along the row-major (K, n) arrays) and
+// splits K across KS = 32 lanes (threadIdx.y); the 4 partial sums of each
+// reduction meet in shared memory. It stays unchanged for those shapes and
+// as the yardstick the slab kernel is timed against. The choice is a rule
+// on the shape, made once in woodbury_schedule; a refused or failed launch
+// of either kernel is returned as an error.
+//
+// Layout. The complex state is torch.view_as_real of a contiguous (2, K, n)
 // complex tensor: [u|p][k][j][re|im], read and written as float2 / double2.
 
 #include <cuda_runtime.h>
+
+#ifdef WOODBURY_PROFILE
+__device__ long long woodbury_profile[8192][8];
+#define PROFILE_MARK(i)                                                         \
+  do {                                                                          \
+    if (threadIdx.x == 0 && blockIdx.x < 8192) woodbury_profile[blockIdx.x][i] = clock64(); \
+  } while (0)
+#else
+#define PROFILE_MARK(i) \
+  do {                  \
+  } while (0)
+#endif
 
 namespace {
 
@@ -124,7 +181,7 @@ __device__ __forceinline__ void capacity_mix(T w[4], const T z[4], const T* __re
 
 template <typename T>
 __global__ void __launch_bounds__(TJ * KS)
-woodbury_fused_kernel(const T* __restrict__ b, T* __restrict__ x,
+woodbury_streaming_kernel(const T* __restrict__ b, T* __restrict__ x,
                       const T* __restrict__ a11r_g, const T* __restrict__ a11i_g,
                       const T* __restrict__ invdet_g, const T* __restrict__ colc,
                       const T* __restrict__ gc, const T* __restrict__ phases,
@@ -235,16 +292,336 @@ woodbury_fused_kernel(const T* __restrict__ b, T* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Slab schedule.
+
+// Async copy of BYTES (4, 8 or 16) from device to shared memory.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(BYTES)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+
+__device__ __forceinline__ void unpack(float* p, const float4& v) {
+  p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
+}
+__device__ __forceinline__ void unpack(double* p, const double2& v) { p[0] = v.x; p[1] = v.y; }
+
+// Row pitch of the staged phase table, in reals: the 16 phases of a bin and
+// 16 bytes of padding, so that the 8 lanes reading 16-byte pieces of 8 rows
+// at once hit distinct banks.
 template <typename T>
-int launch(const T* b, T* x, const T* a11r, const T* a11i, const T* invdet, const T* colc,
-           const T* gc, const T* phases, int K, int n, int refine, int device, void* stream) {
+__host__ __device__ constexpr int phase_pitch() { return 16 + 16 / (int)sizeof(T); }
+
+// Phases LO..HI-1 of bin k from the staged table, 16 bytes at a time.
+template <int LO, int HI, typename T>
+__device__ __forceinline__ void load_phases(T ph[16], const T* sph, int k) {
+  using Q = typename Vec16<T>::type;
+  constexpr int E = 16 / sizeof(T);  // reals per piece
+  const Q* row = reinterpret_cast<const Q*>(sph + k * phase_pitch<T>());
+#pragma unroll
+  for (int q = LO / E; q < HI / E; ++q) unpack(ph + q * E, row[q]);
+}
+
+// Sum the 4 per-lane partials of each column over its L lanes; every lane of
+// the column gets the same totals back in acc. The butterfly adds each pair
+// in both orders, which IEEE addition makes bitwise equal. With L > 32 the
+// column's warps then meet in `red` (two alternating buffers, so one barrier
+// per reduction suffices).
+template <typename T, int L>
+__device__ __forceinline__ void lane_sum4(T acc[4], T* red, int cols, int& parity) {
+  constexpr int W = L < 32 ? L : 32;
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], o);
+  }
+  if constexpr (L > 32) {
+    constexpr int NW = L / 32;  // warps per column
+    const int c = threadIdx.x / L, wi = (threadIdx.x % L) >> 5;
+    T* part = red + (size_t)(parity * cols + c) * NW * 4;
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[wi * 4 + q] = acc[q];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      T s = part[q];
+#pragma unroll
+      for (int v = 1; v < NW; ++v) s += part[v * 4 + q];
+      acc[q] = s;
+    }
+    parity ^= 1;
+  }
+}
+
+// Shared memory of a slab block: the phase table (phase_pitch reals per
+// bin), 11 reals per bin of each of its `cols` columns at column stride ks
+// (b and x as two complex arrays each, a11 complex, invdet), and two
+// buffers of cross-warp partials when L > 32.
+template <typename T>
+size_t slab_bytes(int K, int cols, int lanes, int ks) {
+  size_t bytes = ((size_t)cols * ks * 11 + (size_t)phase_pitch<T>() * K) * sizeof(T);
+  if (lanes > 32) bytes += (size_t)2 * cols * (lanes / 32) * 4 * sizeof(T);
+  return bytes;
+}
+
+// One block: cols = blockDim.x / L columns, all K bins. Slab arrays are
+// [column][bin] at stride ks; the phases [bin][phase].
+template <typename T, int L>
+__global__ void __launch_bounds__(256)
+woodbury_slab_kernel(const T* __restrict__ b, T* __restrict__ x,
+                     const T* __restrict__ a11r_g, const T* __restrict__ a11i_g,
+                     const T* __restrict__ invdet_g, const T* __restrict__ colc,
+                     const T* __restrict__ gc, const T* __restrict__ phases,
+                     int K, int n, int refine, int ks) {
+  using V = typename Vec2<T>::type;
+  extern __shared__ __align__(16) unsigned char slab[];
+  constexpr int PH = phase_pitch<T>();
+  const int cols = blockDim.x / L;
+  const int S = cols * ks;
+  T* const sph = reinterpret_cast<T*>(slab);
+  V* const bu = reinterpret_cast<V*>(sph + PH * K);
+  V* const bp = bu + S;
+  V* const xu = bp + S;
+  V* const xp = xu + S;
+  V* const sa11 = xp + S;  // (a11r, a11i)
+  T* const sinvdet = reinterpret_cast<T*>(sa11 + S);
+  T* const red = sinvdet + S;
+
+  PROFILE_MARK(0);
+  const int j0 = blockIdx.x * cols;
+  const int cshift = __ffs(cols) - 1;
+  const size_t plane = (size_t)K * n;  // complex elements of the u (or p) plane
+  const V* bv = reinterpret_cast<const V*>(b);
+  V* xv = reinterpret_cast<V*>(x);
+
+  // Load sweep: the phase table in 16-byte pieces, then b and the three
+  // constants of the block's columns, column index fastest; every copy is
+  // in flight before the one wait.
+  constexpr int E = 16 / sizeof(T);  // reals per 16-byte piece
+  constexpr int PIECES = 16 / E;      // pieces of one bin's 16 phases
+  for (int i = threadIdx.x; i < PIECES * K; i += blockDim.x)
+    cp_async<16>(sph + (i / PIECES) * PH + (i % PIECES) * E, phases + E * i);
+  for (int i = threadIdx.x; i < K * cols; i += blockDim.x) {
+    const int k = i >> cshift, c = i & (cols - 1);
+    if (j0 + c < n) {
+      const size_t o = (size_t)k * n + j0 + c;
+      const int s = c * ks + k;
+      cp_async<sizeof(V)>(bu + s, bv + o);
+      cp_async<sizeof(V)>(bp + s, bv + plane + o);
+      cp_async<sizeof(T)>(&sa11[s].x, a11r_g + o);
+      cp_async<sizeof(T)>(&sa11[s].y, a11i_g + o);
+      cp_async<sizeof(T)>(sinvdet + s, invdet_g + o);
+    }
+  }
+  PROFILE_MARK(1);
+  cp_async_wait_all();
+  __syncthreads();
+  PROFILE_MARK(2);
+
+  const int c = threadIdx.x / L, lane = threadIdx.x % L;
+  const int j = j0 + c;
+  // Dead columns (j >= n) run no bins but join every reduction.
+  const int k_end = j < n ? K : 0;
+  const int base = c * ks;
+  T m1 = T(0), kap1 = T(0), tm1 = T(0), mk1 = T(0);
+  if (j < n) {
+    m1 = colc[j];
+    kap1 = colc[n + j];
+    tm1 = colc[2 * n + j];
+    mk1 = colc[3 * n + j];
+  }
+
+  auto load = [&](const V* u, const V* p, int s) {
+    const V a = u[s], q = p[s];
+    return C4<T>{a.x, a.y, q.x, q.y};
+  };
+  auto store = [&](int s, const C4<T>& v) {
+    V a, q;
+    a.x = v.ur; a.y = v.ui; q.x = v.pr; q.y = v.pi;
+    xu[s] = a;
+    xp[s] = q;
+  };
+
+  int parity = 0;
+  T acc[4], w[4] = {T(0), T(0), T(0), T(0)}, r[4], ph[16];
+
+  // Pass 1: z = Phi* D^-1 b ; w = G z
+  acc[0] = acc[1] = acc[2] = acc[3] = T(0);
+#pragma unroll 2
+  for (int k = lane; k < k_end; k += L) {
+    const int s = base + k;
+    load_phases<0, 8>(ph, sph, k);
+    const V a = sa11[s];
+    const C4<T> y = d_inv(load(bu, bp, s), a.x, a.y, tm1, sinvdet[s]);
+    extract_add(acc, y, ph);
+  }
+  lane_sum4<T, L>(acc, red, cols, parity);
+  if (j < n) capacity_mix(w, acc, gc, j, n);
+  PROFILE_MARK(3);
+
+  // Pass 2: x = D^-1 b - D^-1 (psi w) into the slab; accumulate Phi* x for A_hat.
+  acc[0] = acc[1] = acc[2] = acc[3] = T(0);
+#pragma unroll 2
+  for (int k = lane; k < k_end; k += L) {
+    const int s = base + k;
+    const V a = sa11[s];
+    const T a11r = a.x, a11i = a.y, invdet = sinvdet[s];
+    load_phases<8, 16>(ph, sph, k);
+    if (refine > 0) load_phases<0, 8>(ph, sph, k);
+    const C4<T> y = d_inv(load(bu, bp, s), a11r, a11i, tm1, invdet);
+    const C4<T> d = d_inv(psi_outer(ph, w), a11r, a11i, tm1, invdet);
+    const C4<T> xk{y.ur - d.ur, y.ui - d.ui, y.pr - d.pr, y.pi - d.pi};
+    store(s, xk);
+    if (refine > 0) extract_add(acc, xk, ph);
+  }
+
+  for (int st = 0; st < refine; ++st) {
+    // Boundary rows of A_hat from the extracted slices (uN1, uN2, p0, p1).
+    lane_sum4<T, L>(acc, red, cols, parity);
+    PROFILE_MARK(4);
+    r[0] = m1 * (T(2) * acc[0] - acc[1]) - kap1 * acc[1] + T(0.5) * tm1 * acc[2];
+    r[1] = -mk1 * acc[0];
+    r[2] = m1 * (T(2) * acc[2] - acc[3]) - kap1 * acc[3] - T(0.5) * tm1 * acc[0];
+    r[3] = -mk1 * acc[2];
+
+    // Pass 3: z = Phi* D^-1 (b - A_hat x) ; w = G z
+    acc[0] = acc[1] = acc[2] = acc[3] = T(0);
+  #pragma unroll 2
+  for (int k = lane; k < k_end; k += L) {
+      const int s = base + k;
+      const V a = sa11[s];
+      const T a11r = a.x, a11i = a.y, invdet = sinvdet[s];
+      load_phases<0, 16>(ph, sph, k);
+      const C4<T> bk = load(bu, bp, s);
+      const C4<T> dx = d_apply(load(xu, xp, s), a11r, a11i, tm1);
+      const C4<T> in = psi_outer(ph, r);
+      const C4<T> res{bk.ur - (dx.ur + in.ur), bk.ui - (dx.ui + in.ui),
+                      bk.pr - (dx.pr + in.pr), bk.pi - (dx.pi + in.pi)};
+      extract_add(acc, d_inv(res, a11r, a11i, tm1, invdet), ph);
+    }
+    lane_sum4<T, L>(acc, red, cols, parity);
+    if (j < n) capacity_mix(w, acc, gc, j, n);
+    PROFILE_MARK(5);
+
+    // Pass 4: x += D^-1 (b - A_hat x) - D^-1 (psi w) in the slab; accumulate
+    // Phi* x when another refine step follows.
+    const bool more = st + 1 < refine;
+    acc[0] = acc[1] = acc[2] = acc[3] = T(0);
+  #pragma unroll 2
+  for (int k = lane; k < k_end; k += L) {
+      const int s = base + k;
+      const V a = sa11[s];
+      const T a11r = a.x, a11i = a.y, invdet = sinvdet[s];
+      load_phases<8, 16>(ph, sph, k);
+      if (more) load_phases<0, 8>(ph, sph, k);
+      const C4<T> bk = load(bu, bp, s);
+      const C4<T> xk = load(xu, xp, s);
+      const C4<T> dx = d_apply(xk, a11r, a11i, tm1);
+      const C4<T> in = psi_outer(ph, r);
+      const C4<T> res{bk.ur - (dx.ur + in.ur), bk.ui - (dx.ui + in.ui),
+                      bk.pr - (dx.pr + in.pr), bk.pi - (dx.pi + in.pi)};
+      const C4<T> y = d_inv(res, a11r, a11i, tm1, invdet);
+      const C4<T> d = d_inv(psi_outer(ph, w), a11r, a11i, tm1, invdet);
+      const C4<T> xn{xk.ur + (y.ur - d.ur), xk.ui + (y.ui - d.ui),
+                     xk.pr + (y.pr - d.pr), xk.pi + (y.pi - d.pi)};
+      store(s, xn);
+      if (more) extract_add(acc, xn, ph);
+    }
+  }
+
+  // Store sweep: x to device memory once, column index fastest.
+  __syncthreads();
+  PROFILE_MARK(6);
+  for (int i = threadIdx.x; i < K * cols; i += blockDim.x) {
+    const int k = i >> cshift, cc = i & (cols - 1);
+    if (j0 + cc < n) {
+      const size_t o = (size_t)k * n + j0 + cc;
+      const int s = cc * ks + k;
+      xv[o] = xu[s];
+      xv[plane + o] = xp[s];
+    }
+  }
+  PROFILE_MARK(7);
+}
+
+// ---------------------------------------------------------------------------
+// Launchers.
+
+template <typename T>
+int launch_streaming(const T* b, T* x, const T* a11r, const T* a11i, const T* invdet,
+                     const T* colc, const T* gc, const T* phases, int K, int n, int refine,
+                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(TJ, KS);
   const dim3 grid((n + TJ - 1) / TJ);
-  woodbury_fused_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+  woodbury_streaming_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
       b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int L>
+cudaError_t launch_slab_lanes(const T* b, T* x, const T* a11r, const T* a11i, const T* invdet,
+                              const T* colc, const T* gc, const T* phases, int K, int n,
+                              int refine, int cols, int ks, int smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        woodbury_slab_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  woodbury_slab_kernel<T, L><<<(n + cols - 1) / cols, cols * L, smem, stream>>>(
+      b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, ks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_slab(const T* b, T* x, const T* a11r, const T* a11i, const T* invdet, const T* colc,
+                const T* gc, const T* phases, int K, int n, int refine, int cols, int lanes,
+                int ks, int smem, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const bool pow2 = cols >= 1 && cols <= 32 && (cols & (cols - 1)) == 0;
+  const int threads = cols * lanes;
+  if (!pow2 || threads % 32 != 0 || threads > 256 || ks < K || smem < 0 ||
+      (size_t)smem < slab_bytes<T>(K, cols, lanes, ks))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes) {
+    case 8:
+      err = launch_slab_lanes<T, 8>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols, ks, smem, s);
+      break;
+    case 16:
+      err = launch_slab_lanes<T, 16>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols, ks, smem, s);
+      break;
+    case 32:
+      err = launch_slab_lanes<T, 32>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols, ks, smem, s);
+      break;
+    case 64:
+      err = launch_slab_lanes<T, 64>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols, ks, smem, s);
+      break;
+    case 128:
+      err = launch_slab_lanes<T, 128>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols, ks, smem, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
 }
 
 }  // namespace
@@ -252,23 +629,55 @@ int launch(const T* b, T* x, const T* a11r, const T* a11i, const T* invdet, cons
 // Plain C interface for ctypes. Pointers are device pointers; the state b
 // and the output x are view_as_real of contiguous (2, K, n) complex tensors,
 // a11r / a11i / invdet are (K, n), colc is (4, n) [m1, kap1, tm1, mk1], gc is
-// (16, n) [G row-major], phases is (K, 16). Returns the cudaError_t of the
-// launch (0 on success); the launch is asynchronous on `stream`.
+// (16, n) [G row-major], phases is (K, 16). The slab launchers add the
+// schedule: `cols` columns per block
+// (a power of two <= 32), `lanes` K-lanes per column (cols * lanes threads, a
+// multiple of 32 and at most 256), slab column stride `ks` >= K and
+// `smem_bytes` of dynamic shared memory (at least what the slab needs).
+// Returns the cudaError_t of the launch (0 on success; a schedule the
+// launcher or the card refuses is an error too); the launch is asynchronous
+// on `stream`.
 extern "C" {
 
-int woodbury_fused_f32(const float* b, float* x, const float* a11r, const float* a11i,
-                       const float* invdet, const float* colc, const float* gc,
-                       const float* phases, int K, int n, int refine, int device, void* stream) {
-  return launch<float>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, device, stream);
+int woodbury_streaming_f32(const float* b, float* x, const float* a11r, const float* a11i,
+                           const float* invdet, const float* colc, const float* gc,
+                           const float* phases, int K, int n, int refine, int device,
+                           void* stream) {
+  return launch_streaming<float>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine,
+                                 device, stream);
 }
 
-int woodbury_fused_f64(const double* b, double* x, const double* a11r, const double* a11i,
-                       const double* invdet, const double* colc, const double* gc,
-                       const double* phases, int K, int n, int refine, int device,
-                       void* stream) {
-  return launch<double>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, device, stream);
+int woodbury_streaming_f64(const double* b, double* x, const double* a11r, const double* a11i,
+                           const double* invdet, const double* colc, const double* gc,
+                           const double* phases, int K, int n, int refine, int device,
+                           void* stream) {
+  return launch_streaming<double>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine,
+                                  device, stream);
+}
+
+int woodbury_slab_f32(const float* b, float* x, const float* a11r, const float* a11i,
+                      const float* invdet, const float* colc, const float* gc,
+                      const float* phases, int K, int n, int refine, int cols, int lanes,
+                      int ks, int smem_bytes, int device, void* stream) {
+  return launch_slab<float>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols,
+                            lanes, ks, smem_bytes, device, stream);
+}
+
+int woodbury_slab_f64(const double* b, double* x, const double* a11r, const double* a11i,
+                      const double* invdet, const double* colc, const double* gc,
+                      const double* phases, int K, int n, int refine, int cols, int lanes,
+                      int ks, int smem_bytes, int device, void* stream) {
+  return launch_slab<double>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols,
+                             lanes, ks, smem_bytes, device, stream);
 }
 
 const char* woodbury_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+#ifdef WOODBURY_PROFILE
+// Copy the profile build's (8192, 8) clock64 marks to host memory.
+int woodbury_profile_read(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, woodbury_profile, sizeof(woodbury_profile));
+}
+#endif
 
 }  // extern "C"

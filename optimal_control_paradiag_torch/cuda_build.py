@@ -98,7 +98,7 @@ def load_library(source: str) -> BuiltLibrary:
         return built
 
 
-def launch_fused_solve(name: str, fns, error_string, b_hat, consts, shapes, refine: int):
+def launch_fused_solve(name: str, fns, error_string, b_hat, consts, shapes, refine: int, extra=()):
     """Check the arguments of a fused half-spectrum solve and launch it.
 
     ``b_hat`` must be a contiguous, resolved (2, K, n) complex CUDA tensor,
@@ -106,8 +106,10 @@ def launch_fused_solve(name: str, fns, error_string, b_hat, consts, shapes, refi
     in the kernel's argument order) contiguous, of the matching real dtype,
     on the same device and of its shape, with K, n taken from the first
     constant; ``refine`` a non-negative int. ``fns`` maps the real dtype to
-    the ctypes launcher, ``error_string`` turns its return code into text.
-    Returns x, the (2, K, n) output; a refused or failed launch raises."""
+    the ctypes launcher, ``error_string`` turns its return code into text;
+    ``extra`` ints (a kernel's schedule) follow ``refine`` in the launcher's
+    arguments. Returns x, the (2, K, n) output; a refused or failed launch
+    raises."""
     real = {torch.complex64: torch.float32, torch.complex128: torch.float64}.get(b_hat.dtype)
     K, n = getattr(consts, next(iter(shapes))).shape
     if real is None or b_hat.shape != (2, K, n) or not b_hat.is_contiguous() or b_hat.is_conj():
@@ -128,7 +130,7 @@ def launch_fused_solve(name: str, fns, error_string, b_hat, consts, shapes, refi
     x = torch.empty_like(b_hat)
     device = b_hat.device.index if b_hat.device.index is not None else torch.cuda.current_device()
     err = fns[real](
-        b_hat.data_ptr(), x.data_ptr(), *ptrs, K, n, refine, device,
+        b_hat.data_ptr(), x.data_ptr(), *ptrs, K, n, refine, *extra, device,
         torch.cuda.current_stream(b_hat.device).cuda_stream,
     )
     if err != 0:

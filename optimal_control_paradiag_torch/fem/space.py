@@ -25,7 +25,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from optimal_control_paradiag_torch.utils.constants import host_const, np_dtype, to_device
+from optimal_control_paradiag_torch.utils.constants import host_const, np_dtype, resolve_device, to_device
 
 # Dense DST matrix budget of dst_method='auto' (the JAX package's choice).
 _DST_MATMUL_BUDGET_BYTES = 64 * 2**20
@@ -90,7 +90,7 @@ class P1Space:
     N_x: int
     mass: str  # 'consistent' | 'lumped'
     dtype: Any
-    device: torch.device = torch.device("cpu")
+    device: torch.device
     dst_method: str = "auto"
     dst_precision: str = "highest"
 
@@ -280,16 +280,18 @@ def make_space(
     N_x: int,
     mass: str = "consistent",
     dtype=torch.float64,
-    device="cpu",
+    device="cuda",
     dst_method: str = "auto",
     dst_precision: str = "highest",
 ) -> P1Space:
+    """A ``P1Space`` on ``device``: the card by default; without a CUDA card
+    this raises unless ``device='cpu'`` is passed."""
     return P1Space(
         dim=dim,
         N_x=N_x,
         mass=mass,
         dtype=dtype,
-        device=torch.device(device),
+        device=resolve_device(device),
         dst_method=dst_method,
         dst_precision=dst_precision,
     )

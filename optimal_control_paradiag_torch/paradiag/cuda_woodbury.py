@@ -6,18 +6,28 @@ non-transform time in ~30 elementwise passes over the ``(K, n)`` spectral
 state (K = N_t//2 + 1): D^{-1}, 4 slice extractions, the 4x4 capacity mix,
 rank-1 injections, D^{-1}, then per ``refine`` step the exact operator A_hat
 and a second Woodbury pass. The kernel (``csrc/woodbury.cu``) does all of it,
-``b_hat -> x``, in one launch; its source comment gives the schedule.
+``b_hat -> x``, in one launch; its source comment gives the design.
 
-Three pieces, in the order the solve uses them:
+``csrc/woodbury.cu`` holds two kernels for the same function, and
+:func:`woodbury_schedule` picks one from the shape: the slab kernel, which
+keeps all K bins of C adjacent columns in shared memory and so reads b and
+the constants from device memory once and writes x once; and, for K too
+long for even one column's slab, the streaming kernel, which passes over K
+2 + 2·refine times.
+
+The pieces, in the order the solve uses them:
 
 - :func:`pack_constants`: the per-(k, j) constants a11r, a11i, invdet (from
   the float64 a11/det, then cast), the per-column rows m1, kap1, tm1, mk1,
   the capacity matrices G and the phases, in the working dtype on the
   operator's device;
+- :func:`woodbury_schedule`: the schedule rule, pure arithmetic on the
+  shape (no CUDA call);
 - :func:`fused_woodbury`: the wrapper. On a CUDA tensor it launches the
-  kernel (and counts the launch in ``fused_woodbury.launches``); on a CPU
-  tensor it runs :func:`fused_woodbury_reference`, the plain PyTorch twin of
-  the kernel body on the same packed constants;
+  kernel the schedule names (and counts the launch in
+  ``fused_woodbury.launches``); on a CPU tensor it runs
+  :func:`fused_woodbury_reference`, the plain PyTorch twin of the kernel
+  body on the same packed constants;
 - :func:`build_cuda_woodbury_solver`: ``b -> x``: DST matmul, packed time
   FFT, one kernel launch, inverse packed FFT, inverse DST.
 """
@@ -175,52 +185,153 @@ def fused_woodbury_reference(
     return torch.view_as_complex(out.contiguous())
 
 
+# Shared memory one block may use on sm_90 (227 KB).
+SMEM_PER_BLOCK_MAX = 232_448
+# The streaming kernel's block: TJ = 16 columns x KS = 32 K-lanes.
+_TJ, _KS = 16, 32
+
+
+@dataclasses.dataclass(frozen=True)
+class WoodburySchedule:
+    """How the fused solve is launched for one shape.
+
+    ``kind``: ``"slab"`` or ``"streaming"``; ``cols``: columns per block;
+    ``lanes``: K-lanes per column; ``stride``: the slab's column stride in
+    elements (0 for the streaming kernel); ``smem_bytes``: shared memory per
+    block."""
+
+    kind: str
+    cols: int
+    lanes: int
+    stride: int
+    smem_bytes: int
+
+
+def _slab_stride(K: int, cols: int, lanes: int, itemsize: int) -> int:
+    """The slab's column stride: K padded to an odd multiple of ``m`` so
+    that the columns one warp touches fall in distinct shared-memory banks.
+    With lanes < 32 a warp reads ``32 // lanes`` columns at once in the
+    passes (m = lanes); otherwise it writes ``cols`` columns at once in the
+    load sweep, one complex element (2 * itemsize bytes) each, 128 bytes per
+    wavefront (m = 64 // itemsize // cols)."""
+    if cols == 1:
+        return K
+    m = lanes if lanes < 32 else max(1, 64 // itemsize // cols)
+    q = -(-K // m)
+    return m * (q + 1 - q % 2)
+
+
+def _slab_bytes(K: int, cols: int, lanes: int, stride: int, itemsize: int) -> int:
+    """Shared memory of a slab block, as ``csrc/woodbury.cu:slab_bytes``: the
+    phase table (the 16 phases of a bin and 16 bytes of padding per bin), 11
+    reals per bin of each column (b and x complex, a11 complex, invdet), and
+    two buffers of cross-warp partials when a column spans several warps."""
+    red = 2 * cols * (lanes // 32) * 4 * itemsize if lanes > 32 else 0
+    return (cols * stride * 11 + (16 + 16 // itemsize) * K) * itemsize + red
+
+
+def streaming_schedule(itemsize: int) -> WoodburySchedule:
+    """The streaming kernel's fixed launch shape (its static shared memory:
+    4 x KS x TJ partials and 4 x TJ totals)."""
+    return WoodburySchedule("streaming", _TJ, _KS, 0, (4 * _KS * _TJ + 4 * _TJ) * itemsize)
+
+
+def slab_schedule(K: int, cols: int, itemsize: int) -> WoodburySchedule:
+    """The slab kernel with ``cols`` columns per block (a power of two
+    <= 32), whether or not it fits a block: 128 threads for cols <= 4, 256
+    above, so 128 / cols or 256 / cols K-lanes per column."""
+    lanes = (128 if cols <= 4 else 256) // cols
+    stride = _slab_stride(K, cols, lanes, itemsize)
+    return WoodburySchedule("slab", cols, lanes, stride, _slab_bytes(K, cols, lanes, stride, itemsize))
+
+
+def woodbury_schedule(K: int, n: int, itemsize: int) -> WoodburySchedule:
+    """The schedule of the fused solve for K bins, n columns and reals of
+    ``itemsize`` bytes: the slab kernel with the largest power-of-two column
+    count C <= 32 (and no wider than n needs) whose slab fits the shared
+    memory a block may use, or the streaming kernel when not even one column
+    fits."""
+    cols = min(32, 1 << max(0, (n - 1).bit_length()))
+    while cols >= 1:
+        sched = slab_schedule(K, cols, itemsize)
+        if sched.smem_bytes <= SMEM_PER_BLOCK_MAX:
+            return sched
+        cols //= 2
+    return streaming_schedule(itemsize)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_library() -> ctypes.CDLL:
     """The built kernel library, with its ctypes signatures declared."""
     lib = load_library(KERNEL_SOURCE).lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.woodbury_fused_f32, lib.woodbury_fused_f64):
+    for fn in (lib.woodbury_streaming_f32, lib.woodbury_streaming_f64):
         fn.argtypes = [p] * 8 + [i, i, i, i, p]
+        fn.restype = i
+    for fn in (lib.woodbury_slab_f32, lib.woodbury_slab_f64):
+        fn.argtypes = [p] * 8 + [i] * 8 + [p]
         fn.restype = i
     lib.woodbury_error_string.argtypes = [i]
     lib.woodbury_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def fused_woodbury(b_hat: torch.Tensor, consts: WoodburyConstants, refine: int) -> torch.Tensor:
-    """``x = A_hat^{-1} b_hat`` on the half spectrum, with ``refine`` defect
-    corrections. ``b_hat`` is a contiguous (2, K, n) complex tensor.
+_CONST_SHAPES = {
+    "a11r": ("K", "n"),
+    "a11i": ("K", "n"),
+    "invdet": ("K", "n"),
+    "colc": (4, "n"),
+    "gc": (16, "n"),
+    "phases": ("K", 16),
+}
 
-    A CUDA tensor goes to the CUDA kernel (one launch, counted in
-    ``fused_woodbury.launches``); a build or launch failure raises. A CPU
-    tensor goes to :func:`fused_woodbury_reference`."""
-    if b_hat.device.type == "cpu":
-        return fused_woodbury_reference(b_hat, consts, refine)
+
+def _launch(b_hat: torch.Tensor, consts: WoodburyConstants, refine: int, sched: WoodburySchedule) -> torch.Tensor:
+    """Launch the kernel ``sched`` names on CUDA tensors and count it."""
     if b_hat.device.type != "cuda":
-        raise ValueError(f"fused_woodbury runs on CUDA or CPU tensors, got {b_hat.device}")
+        raise ValueError(f"the fused Woodbury kernels run on CUDA tensors, got {b_hat.device}")
     lib = _kernel_library()
+    if sched.kind == "slab":
+        if consts.phases.data_ptr() % 16:
+            raise ValueError("the slab kernel copies the phase table in 16-byte pieces: it must be 16-byte aligned")
+        fns = {torch.float32: lib.woodbury_slab_f32, torch.float64: lib.woodbury_slab_f64}
+        extra = (sched.cols, sched.lanes, sched.stride, sched.smem_bytes)
+    elif sched.kind == "streaming":
+        fns = {torch.float32: lib.woodbury_streaming_f32, torch.float64: lib.woodbury_streaming_f64}
+        extra = ()
+    else:
+        raise ValueError(f"unknown schedule kind {sched.kind!r}")
     x = launch_fused_solve(
-        "woodbury_fused",
-        {torch.float32: lib.woodbury_fused_f32, torch.float64: lib.woodbury_fused_f64},
-        lib.woodbury_error_string,
-        b_hat,
-        consts,
-        {
-            "a11r": ("K", "n"),
-            "a11i": ("K", "n"),
-            "invdet": ("K", "n"),
-            "colc": (4, "n"),
-            "gc": (16, "n"),
-            "phases": ("K", 16),
-        },
-        refine,
+        f"woodbury_{sched.kind}", fns, lib.woodbury_error_string, b_hat, consts, _CONST_SHAPES, refine, extra
     )
     fused_woodbury.launches += 1
     return x
 
 
+def fused_woodbury(b_hat: torch.Tensor, consts: WoodburyConstants, refine: int) -> torch.Tensor:
+    """``x = A_hat^{-1} b_hat`` on the half spectrum, with ``refine`` defect
+    corrections. ``b_hat`` is a contiguous (2, K, n) complex tensor.
+
+    A CUDA tensor goes to the kernel :func:`woodbury_schedule` picks for its
+    shape (one launch, counted in ``fused_woodbury.launches``); a build
+    failure or a refused or failed launch raises. A CPU tensor goes to
+    :func:`fused_woodbury_reference`."""
+    if b_hat.device.type == "cpu":
+        return fused_woodbury_reference(b_hat, consts, refine)
+    if b_hat.device.type != "cuda":
+        raise ValueError(f"fused_woodbury runs on CUDA or CPU tensors, got {b_hat.device}")
+    K, n = consts.a11r.shape
+    return _launch(b_hat, consts, refine, woodbury_schedule(K, n, consts.a11r.element_size()))
+
+
 fused_woodbury.launches = 0
+
+
+def _fused_woodbury_streaming(b_hat: torch.Tensor, consts: WoodburyConstants, refine: int) -> torch.Tensor:
+    """The streaming kernel at any shape, on CUDA tensors: the yardstick the
+    card tests and ``chip_smoke.py`` hold the slab kernel against. No solver
+    reaches it."""
+    return _launch(b_hat, consts, refine, streaming_schedule(consts.a11r.element_size()))
 
 
 def build_cuda_woodbury_solver(

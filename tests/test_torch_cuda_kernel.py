@@ -1,6 +1,9 @@
 """The fused Woodbury CUDA kernels (csrc/woodbury.cu for the wave family,
 csrc/heat_woodbury.cu for the heat family) vs their plain PyTorch twins, on
-the card. These tests need a CUDA card and nvcc; they skip
+the card. The wave family has two kernels: the slab kernel, which
+``fused_woodbury`` launches wherever one column's slab fits a block, and
+the streaming kernel, forced here at shapes the slab takes and chosen by the
+schedule at a long K. These tests need a CUDA card and nvcc; they skip
 without one. The file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda_kernel.py -q
@@ -12,6 +15,8 @@ float32 solve's own error (chip_smoke.py prints both). The heat kernel's
 float32 tolerance at its headline shape is chip_smoke.py's ``HEAT_TOL_F32``,
 set the same way.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -26,6 +31,7 @@ from optimal_control_paradiag_torch import (
 from optimal_control_paradiag_torch.ops.transforms import time_rfft_conj_packed
 from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
 from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
+from optimal_control_paradiag_torch.paradiag.spectral import _capacity_matrices
 
 torch.set_num_threads(1)
 
@@ -56,6 +62,7 @@ def _rel(a, b):
 def test_kernel_matches_twin(cuda, kw, dtype, refine, tol):
     prob = WaveControlProblem(ProblemConfig(**kw, dtype=dtype), device=cuda)
     c = cw.pack_constants(prob.operator)
+    assert cw.woodbury_schedule(*c.a11r.shape, c.a11r.element_size()).kind == "slab"
     b_hat = time_rfft_conj_packed(prob.space.dst(prob.rhs), kw["N_t"])
     before = cw.fused_woodbury.launches
     x = cw.fused_woodbury(b_hat, c, refine)
@@ -63,6 +70,65 @@ def test_kernel_matches_twin(cuda, kw, dtype, refine, tol):
     assert cw.fused_woodbury.launches == before + 1
     assert x.dtype == b_hat.dtype and x.shape == b_hat.shape
     assert _rel(x, cw.fused_woodbury_reference(b_hat, c, refine)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kw,dtype,refine,tol,forced",
+    [
+        (dict(N_x=40, N_t=24), torch.float64, 0, 1e-12, True),
+        (dict(N_x=40, N_t=24), torch.float64, 1, 1e-12, True),
+        (dict(N_x=2048, N_t=1024), torch.float32, 1, 2e-4, True),
+        (dict(N_x=8, N_t=10000, T=20.0), torch.float64, 1, 1e-12, False),
+        (dict(N_x=256, N_t=64, dim=2, mass="lumped"), torch.float32, 1, 2e-4, False),
+    ],
+    ids=["streaming-40x24-r0", "streaming-40x24-r1", "streaming-headline-f32-r1",
+         "long-k-8x10000-T20-f64-r1", "wide-2d-lumped-256x64-f32-r1"],
+)
+def test_schedules_match_twin(cuda, monkeypatch, kw, dtype, refine, tol, forced):
+    """The streaming kernel forced where the slab would run; a long K (5001
+    bins, 440 KB per column in float64) where the schedule takes the
+    streaming kernel itself; and the wide, short wave 2D lumped shape
+    (n = 65025, K = 33), where it takes 32 columns per slab block.
+
+    The long-K case keeps the headline's time step (T = 20 over 10000
+    slices): at T = 2 the solve is so ill-conditioned that any two summation
+    orders differ by ~1e-12 in float64. The imaginary part of its capacity
+    matrices is 8.6e-11 of the real one, close to the plan's 1e-10 limit (as
+    in the JAX package), so the real part is taken unchecked: the kernel and
+    its twin compute the same function of any constants."""
+    if kw["N_t"] == 10000:
+        monkeypatch.setattr(cw, "_real_capacity_matrices", lambda pl: _capacity_matrices(pl).real)
+    prob = WaveControlProblem(ProblemConfig(**kw, dtype=dtype), device=cuda)
+    c = cw.pack_constants(prob.operator)
+    sched = cw.woodbury_schedule(*c.a11r.shape, c.a11r.element_size())
+    b_hat = time_rfft_conj_packed(prob.space.dst(prob.rhs), kw["N_t"])
+    before = cw.fused_woodbury.launches
+    if forced:
+        assert sched.kind == "slab"
+        x = cw._fused_woodbury_streaming(b_hat, c, refine)
+    else:
+        assert sched.kind == ("streaming" if kw["N_t"] == 10000 else "slab")
+        x = cw.fused_woodbury(b_hat, c, refine)
+    torch.cuda.synchronize()
+    assert cw.fused_woodbury.launches == before + 1
+    assert x.dtype == b_hat.dtype and x.shape == b_hat.shape
+    assert _rel(x, cw.fused_woodbury_reference(b_hat, c, refine)) <= tol
+
+
+@pytest.mark.cuda
+def test_refused_slab_launch_raises(cuda):
+    """A schedule the launcher or the card refuses raises; nothing falls
+    back to the twin."""
+    prob = WaveControlProblem(ProblemConfig(N_x=12, N_t=10), device=cuda)
+    c = cw.pack_constants(prob.operator)
+    b_hat = torch.zeros(2, 6, 11, dtype=torch.complex128, device=cuda)
+    sched = cw.woodbury_schedule(6, 11, 8)
+    for bad in (dataclasses.replace(sched, smem_bytes=sched.smem_bytes - 8),
+                dataclasses.replace(sched, lanes=3),
+                cw.WoodburySchedule("slab", 1, 128, 6, 300_000)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cw._launch(b_hat, c, 1, bad)
 
 
 @pytest.mark.cuda

@@ -111,7 +111,16 @@ def test_float32_stencils_stay_float32():
 )
 def test_unported_transform_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_make_space(dim=1, N_x=8, **kw)
+        t_make_space(dim=1, N_x=8, device="cpu", **kw)
+
+
+def test_make_space_defaults_to_the_card():
+    """Without a device the space goes to the card, and without a card it
+    raises: the port never falls back to the CPU on its own."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        t_make_space(dim=1, N_x=8)
 
 
 def test_auto_dst_past_budget_raises():
