@@ -7,9 +7,13 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``, and no network. Phases, each of which fails the run:
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
-2. build the fused Woodbury kernels from ``csrc/woodbury.cu`` (nvcc): the
-   slab kernel and the streaming kernel; print each one's ptxas registers
-   and spills;
+2. build both kernel sources at once, each by its own nvcc: the fused
+   Woodbury kernels of ``csrc/woodbury.cu`` (slab and streaming) and those
+   of ``csrc/heat_woodbury.cu`` (slab and streaming), beside the variant
+   builds used for measurement only (``-DWOODBURY_PROFILE``,
+   ``-DHEAT_WOODBURY_PROFILE``, the same with ``-DHEAT_WOODBURY_SKIP_B``,
+   ``-DHEAT_WOODBURY_PLANES``); print each kernel's ptxas registers and
+   spills;
 3. hold both kernels against their plain PyTorch twin on the card, at the
    main path's shapes (K = 513, n = 2047), float32 and float64, on the
    main-path input and on a seeded random one, with the schedule each
@@ -24,24 +28,31 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
 5. time the solve, the slab kernel, the streaming kernel, the slab narrowed
    to two columns per block (two blocks per SM), the twin, the DST matmul and the packed FFT
    round trip with CUDA events (median of 20 runs after warm-up, each run
-   started with a cold L2 cache; both kernels warm too); build the slab
-   kernel's profile variant (``-DWOODBURY_PROFILE``) and print the median
+   started with a cold L2 cache; both kernels warm too); with the slab
+   kernel's profile variant (``-DWOODBURY_PROFILE``) print the median
    clock64 cycles of each phase of a block (copies, passes, store);
-6. build the heat family's fused kernel from ``csrc/heat_woodbury.cu``;
-7. hold it against its plain twin at both heat shapes (1D, K = 513,
-   n = 2047; 2D lumped, K = 33, n = 65025), on the main-path input and on a
-   seeded random one, in float32 and float64;
+6. print the heat schedule (``heat_schedule``) of both heat shapes in
+   float32 and float64: the slab kernel at each;
+7. hold the heat slab kernel and the heat streaming kernel against their
+   plain twin at both heat shapes (1D, K = 513, n = 2047; 2D lumped, K = 33,
+   n = 65025), on the main-path input and on a seeded random one, in
+   float32 and float64;
 8. drive the heat 1D headline solve (N_x = 2048, N_t = 1024, float32)
    through ``HeatControlProblem(...).solve(SolverConfig(method='woodbury',
-   use_pallas=True))`` with the heat kernel's launch count set to 0 just
-   before and read just after; gate its float64 residual (<= 2.24e-2) and
-   that of the polished two-float (dword) solve (<= 1e-6);
+   use_pallas=True))`` with the heat kernel's launch counts (all, and by
+   kind) set to 0 just before and read just after: every launch must be the
+   slab kernel's; gate its float64 residual (<= 2.24e-2) and that of the
+   polished two-float (dword) solve (<= 1e-6);
 9. the same for the heat 2D lumped solve (N_x = 256, N_t = 64): dword gate;
 10. solve two small heat problems in float64 on the card and on the CPU and
     require the same ``error_vs_analytic``;
 11. drive the wave headline solve with ``polish=1``: residual <= 8e-4 and
     no higher than without polish;
-12. time the heat and polished paths at both heat shapes.
+12. time the heat and polished paths at both heat shapes, and there the
+    heat slab kernel, the streaming kernel and the slab built to load its
+    constants from the (K, n) planes (cold and warm); print the heat slab's
+    per-phase profile at both shapes, and that of a build whose load sweep
+    leaves b out.
 
 It prints one JSON line per timing, then the kernels line, and last the
 device line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -49,7 +60,10 @@ device line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
+import ctypes
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -163,41 +177,69 @@ def print_ptxas(log: str) -> None:
             print(f"ptxas: {name}: {line.strip()}", flush=True)
 
 
-def slab_profile(torch, cw, b_hat, consts, sched) -> dict:
-    """Median clock64 cycles of each phase of a slab block, from the profile
-    build of ``csrc/woodbury.cu`` on the main path's input."""
-    import ctypes
+_VARIANT_BUILDS = []  # nvcc processes started by start_variant, stopped at exit
 
-    import numpy as np
 
-    from optimal_control_paradiag_torch.cuda_build import NVCC_FLAGS, _nvcc, launch_fused_solve
+def start_variant(source: str, *defines: str):
+    """Start an nvcc build of ``csrc/<source>`` with ``-D`` of each of
+    ``defines`` (a measurement-only variant); returns (process, library
+    path)."""
+    from optimal_control_paradiag_torch.cuda_build import NVCC_FLAGS, _nvcc
 
     csrc = os.path.join(HERE, "optimal_control_paradiag_torch", "csrc")
-    out = os.path.join(csrc, "_build", "woodbury-profile.so")
+    tag = "-".join(d.lower() for d in defines)
+    out = os.path.join(csrc, "_build", f"{os.path.splitext(source)[0]}-{tag}.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-DWOODBURY_PROFILE", "-o", out, os.path.join(csrc, cw.KERNEL_SOURCE)],
-                   check=True, capture_output=True, timeout=600)
-    lib = ctypes.CDLL(out)
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", out, os.path.join(csrc, source)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _VARIANT_BUILDS.append(proc)
+    return proc, out
+
+
+def finish_variant(build):
+    """Wait for a variant build and load it."""
+    proc, out = build
+    log, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {out}:\n{log}")
+    return ctypes.CDLL(out)
+
+
+def block_profile(torch, launch, read, blocks: int) -> dict:
+    """Median clock64 cycles of each phase of a slab block, from a profile
+    build: ``launch()`` runs its slab kernel, ``read(ptr)`` copies its
+    (8192, 8) marks to host memory."""
+    import numpy as np
+
+    for _ in range(3):
+        launch()
+        torch.cuda.synchronize()
+    marks = np.zeros((8192, 8), dtype=np.int64)
+    if read(marks.ctypes.data) != 0:
+        raise RuntimeError("reading the slab profile failed")
+    marks = marks[: min(blocks, 8192)]
+    steps = np.diff(marks, axis=1)
+    names = ("copy_start", "copy_wait", "pass1", "pass2", "pass3", "pass4", "store")
+    total = float(np.median(marks[:, 7] - marks[:, 0]))
+    return {"blocks": int(marks.shape[0]), "block_cycles_median": total,
+            **{f"{k}_cycles": float(np.median(steps[:, j])) for j, k in enumerate(names)}}
+
+
+def slab_profile(torch, cw, lib, b_hat, consts, sched) -> dict:
+    """The wave slab kernel's block profile (``-DWOODBURY_PROFILE`` build of
+    ``csrc/woodbury.cu``) on the main path's input."""
+    from optimal_control_paradiag_torch.cuda_build import launch_fused_solve
+
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.woodbury_slab_f32.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.woodbury_slab_f32.restype = i
     lib.woodbury_error_string.argtypes = [i]
     lib.woodbury_error_string.restype = ctypes.c_char_p
     lib.woodbury_profile_read.argtypes = [p]
-    for _ in range(3):
-        launch_fused_solve("woodbury_slab", {torch.float32: lib.woodbury_slab_f32}, lib.woodbury_error_string,
-                           b_hat, consts, cw._CONST_SHAPES, 1,
-                           (sched.cols, sched.lanes, sched.stride, sched.smem_bytes))
-        torch.cuda.synchronize()
-    marks = np.zeros((8192, 8), dtype=np.int64)
-    if lib.woodbury_profile_read(marks.ctypes.data) != 0:
-        raise RuntimeError("reading the slab profile failed")
-    marks = marks[: -(-consts.a11r.shape[1] // sched.cols)]
-    steps = np.diff(marks, axis=1)
-    names = ("copy_start", "copy_wait", "pass1", "pass2", "pass3", "pass4", "store")
-    total = float(np.median(marks[:, 7] - marks[:, 0]))
-    return {"blocks": int(marks.shape[0]), "block_cycles_median": total,
-            **{f"{k}_cycles": float(np.median(steps[:, j])) for j, k in enumerate(names)}}
+    launch = lambda: launch_fused_solve(
+        "woodbury_slab", {torch.float32: lib.woodbury_slab_f32}, lib.woodbury_error_string, b_hat, consts,
+        cw._CONST_SHAPES, 1, (sched.cols, sched.lanes, sched.stride, sched.smem_bytes))
+    return block_profile(torch, launch, lib.woodbury_profile_read, -(-consts.a11r.shape[1] // sched.cols))
 
 
 def main() -> int:
@@ -243,12 +285,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    # 2. build
+    # 2. build both sources and the measurement variants, all at once
     t0 = time.perf_counter()
-    built = load_library(cw.KERNEL_SOURCE)
-    print(json.dumps({"phase": "build", "source": cw.KERNEL_SOURCE,
-                      "nvcc_s": built.seconds, "load_s": time.perf_counter() - t0}), flush=True)
-    print_ptxas(built.log)
+    variants = {"woodbury_profile": start_variant(cw.KERNEL_SOURCE, "WOODBURY_PROFILE"),
+                "heat_profile": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PROFILE"),
+                "heat_profile_skip_b": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PROFILE", "HEAT_WOODBURY_SKIP_B"),
+                "heat_planes": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PLANES")}
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = list(zip((cw.KERNEL_SOURCE, ch.KERNEL_SOURCE),
+                          pool.map(load_library, (cw.KERNEL_SOURCE, ch.KERNEL_SOURCE))))
+    for source, built in builds:
+        print(json.dumps({"phase": "build", "source": source, "nvcc_s": built.seconds,
+                          "load_s": time.perf_counter() - t0}), flush=True)
+        print_ptxas(built.log)
 
     # 3. both kernels vs the twin at the main path's shapes
     prob = WaveControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float32), device="cuda")
@@ -388,7 +437,8 @@ def main() -> int:
                           "max_ms": hi, "runs": RUNS, "card": smi}), flush=True)
     print(json.dumps({"phase": "slab_profile", "K": K, "n": n, "dtype": "float32", **dataclasses.asdict(cw.woodbury_schedule(K, n, 4)),
                       "sms": torch.cuda.get_device_properties(0).multi_processor_count,
-                      **slab_profile(torch, cw, b_hat, consts, cw.woodbury_schedule(K, n, 4))}), flush=True)
+                      **slab_profile(torch, cw, finish_variant(variants["woodbury_profile"]), b_hat, consts,
+                                     cw.woodbury_schedule(K, n, 4))}), flush=True)
     for name in ("woodbury_kernel", "woodbury_kernel_streaming"):
         med, lo, hi = device_ms(torch, timings[name], None)
         ms[name + "_warm"] = med
@@ -420,20 +470,21 @@ def main() -> int:
     wave_rel, wave_prob = rel, prob
     del prob, consts, b_hat, x_kernel, x_twin, s
 
-    # 6. build the heat kernel
-    t0 = time.perf_counter()
-    built = load_library(ch.KERNEL_SOURCE)
-    print(json.dumps({"phase": "build", "source": ch.KERNEL_SOURCE,
-                      "nvcc_s": built.seconds, "load_s": time.perf_counter() - t0}), flush=True)
-    print_ptxas(built.log)
-
-    # 7. heat kernel vs twin at both heat shapes, refine = 1 (the main path)
+    # 6-7. both heat kernels vs the twin at both heat shapes, refine = 1 (the
+    # main path), with the schedule each dtype takes
     heat = {}
+    heat_kernels = {"slab": ch.fused_heat, "streaming": ch._fused_heat_streaming}
     for label, shape in (("1d", HEAT_1D), ("2d", HEAT_2D)):
         p32 = HeatControlProblem(ProblemConfig(**shape, dtype=torch.float32), device="cuda")
         p64 = HeatControlProblem(ProblemConfig(**shape, dtype=torch.float64), device="cuda")
         c32, c64 = ch.pack_heat_constants(p32), ch.pack_heat_constants(p64)
         hK, hn = c32.a11r.shape
+        for c in (c32, c64):
+            print(json.dumps({"phase": "heat_schedule", "shape": label, "K": hK, "n": hn,
+                              "itemsize": c.a11r.element_size(), **dataclasses.asdict(c.schedule),
+                              "blocks": -(-hn // c.schedule.cols)}), flush=True)
+            if c.schedule.kind != "slab":
+                return fail(f"the heat {label} shape takes the {c.schedule.kind} schedule, not the slab")
         bh32 = time_rfft_conj_packed(p32.space.dst(p32.rhs), shape["N_t"])
         bh64 = time_rfft_conj_packed(p64.space.dst(p64.rhs), shape["N_t"])
         rng = np.random.default_rng(1)
@@ -444,38 +495,42 @@ def main() -> int:
             ("float64 main-path input", bh64, c64, TOL_F64),
             ("float64 random", noise.cuda(), c64, TOL_F64),
         ):
-            xk = ch.fused_heat(bh, c, 1)
-            torch.cuda.synchronize()
             xt = ch.fused_heat_reference(bh, c, 1)
-            err = rel_err(torch, xk, xt)
-            out = {"phase": "heat_kernel_vs_twin", "shape": label, "case": case, "K": hK, "n": hn,
-                   "rel_max_abs_err": err, "tol": tol}
-            if bh.dtype == torch.complex64:
-                # how far each float32 solve lies from the float64 one on the same input
-                x_exact = ch.fused_heat_reference(bh.to(torch.complex128), c64, 1)
-                out["kernel_vs_float64"] = rel_err(torch, xk.to(torch.complex128), x_exact)
-                out["twin_vs_float64"] = rel_err(torch, xt.to(torch.complex128), x_exact)
-            print(json.dumps(out), flush=True)
-            if not err <= tol:
-                return fail(f"heat kernel disagrees with its twin ({label}, {case}): {err:.3e} > {tol:.0e}")
-            if case == "float32 main-path input":
-                heat[label] = (p32, c32, bh32, (xk - xt).abs().max().item())
+            x_exact = ch.fused_heat_reference(bh.to(torch.complex128), c64, 1) if bh.dtype == torch.complex64 else None
+            for which, fn in heat_kernels.items():
+                xk = fn(bh, c, 1)
+                torch.cuda.synchronize()
+                err = rel_err(torch, xk, xt)
+                out = {"phase": "heat_kernel_vs_twin", "kernel": which, "shape": label, "case": case, "K": hK,
+                       "n": hn, "rel_max_abs_err": err, "tol": tol}
+                if x_exact is not None:
+                    # how far each float32 solve lies from the float64 one on the same input
+                    out["kernel_vs_float64"] = rel_err(torch, xk.to(torch.complex128), x_exact)
+                    out["twin_vs_float64"] = rel_err(torch, xt.to(torch.complex128), x_exact)
+                print(json.dumps(out), flush=True)
+                if not err <= tol:
+                    return fail(f"heat {which} kernel disagrees with its twin ({label}, {case}): {err:.3e} > {tol:.0e}")
+                if case == "float32 main-path input" and which == "slab":
+                    heat[label] = (p32, c32, bh32, (xk - xt).abs().max().item())
         del p64, c64, bh64, noise
 
     # 8-9. the heat main paths, through the user entry point
     cfg = SolverConfig(method="woodbury", use_pallas=True)
+    heat_launches = {}
     for label, shape in (("1d", HEAT_1D), ("2d", HEAT_2D)):
         hp = heat[label][0]
         ch.fused_heat.launches = 0
+        ch.fused_heat.kinds.clear()
         t0 = time.perf_counter()
         sol = hp.solve(cfg)
         torch.cuda.synchronize()
         first_solve_s = time.perf_counter() - t0
-        hlaunches = ch.fused_heat.launches
+        hlaunches, hkinds = ch.fused_heat.launches, dict(ch.fused_heat.kinds)
         if hlaunches < 1:
             return fail(f"the heat {label} main path did not launch the fused heat kernel")
-        if label == "1d":
-            heat_launches = hlaunches
+        if hkinds != {"slab": hlaunches}:
+            return fail(f"the heat {label} main path launched {hkinds}, not the slab kernel alone")
+        heat_launches[label] = (hlaunches, hkinds)
         if sol.u.shape != (shape["N_t"], hp.space.n) or sol.u.dtype != torch.float32 or not sol.u.is_cuda:
             return fail(f"heat {label} solution u has {tuple(sol.u.shape)} {sol.u.dtype} on {sol.u.device}")
         if not (torch.isfinite(sol.u).all() and torch.isfinite(sol.p).all()):
@@ -483,14 +538,17 @@ def main() -> int:
         hrel = hp.relative_residual_f64(sol)
         # the polished two-float solve on the same kernel
         ch.fused_heat.launches = 0
+        ch.fused_heat.kinds.clear()
         x, e = build_polished_solver(hp, polish=1, dword=True, base_solver=ch.build_cuda_heat_solver(hp))(hp.rhs)
         torch.cuda.synchronize()
         dword_launches = ch.fused_heat.launches
+        if dict(ch.fused_heat.kinds) != {"slab": dword_launches}:
+            return fail(f"the heat {label} dword solve launched {dict(ch.fused_heat.kinds)}, not the slab kernel alone")
         bb = hp.rhs.double().cpu().numpy()
         r = hp.matvec_host_f64(x.double().cpu().numpy() + e.double().cpu().numpy()) - bb
         rel_dword = float(np.linalg.norm(r.ravel()) / np.linalg.norm(bb.ravel()))
         print(json.dumps({"phase": f"heat_{label}_main_path", **shape, "dtype": "float32",
-                          "launches": hlaunches, "first_solve_s": first_solve_s,
+                          "launches": hlaunches, "launches_by_kind": hkinds, "first_solve_s": first_solve_s,
                           "relative_residual_f64": hrel, "gate": HEAT_MAX_REL_RESIDUAL if label == "1d" else None,
                           "error_vs_analytic": hp.error_vs_analytic(sol), "dword_launches": dword_launches,
                           "relative_residual_f64_dword": rel_dword, "dword_gate": DWORD_MAX_REL_RESIDUAL}), flush=True)
@@ -531,7 +589,8 @@ def main() -> int:
     if not (rel_pol <= MAX_REL_RESIDUAL and rel_pol <= wave_rel):
         return fail(f"wave polish=1 residual {rel_pol:.3e} above {MAX_REL_RESIDUAL} or the polish=0 {wave_rel:.3e}")
 
-    # 12. timings of the heat and polished paths
+    # 12. timings of the heat and polished paths, and of the heat kernels
+    planes = ch._declare(finish_variant(variants["heat_planes"]))  # constants loaded from the (K, n) planes
     wave_pol_fn = wave_prob.make_solver_fn(pol_cfg)
     wrhs = wave_prob.rhs
     timings = {
@@ -548,6 +607,8 @@ def main() -> int:
             f"heat_{label}_solve_plain_torch": lambda f=fns[1], b=hp.rhs: f(b),
             f"heat_{label}_solve_polished": lambda f=fns[2], b=hp.rhs: f(b),
             f"heat_{label}_kernel": lambda b=hb, c=hc: ch.fused_heat(b, c, 1),
+            f"heat_{label}_kernel_streaming": lambda b=hb, c=hc: ch._fused_heat_streaming(b, c, 1),
+            f"heat_{label}_kernel_planes": lambda b=hb, c=hc: ch._launch(b, c, 1, c.schedule, planes),
             f"heat_{label}_twin": lambda b=hb, c=hc: ch.fused_heat_reference(b, c, 1),
             f"heat_{label}_dst_matmul": lambda sp=hp.space, b=hp.rhs: sp.dst(b),
             f"heat_{label}_packed_fft_roundtrip": lambda t=hp.space.dst(hp.rhs), N=hp.config.N_t: (
@@ -561,10 +622,31 @@ def main() -> int:
         print(json.dumps({"timing": name, "clock": "device", "l2": "cold", "median_ms": med, "min_ms": lo,
                           "max_ms": hi, "runs": RUNS, "card": smi}), flush=True)
     for label in ("1d", "2d"):
-        name = f"heat_{label}_kernel"
-        med, lo, hi = device_ms(torch, timings[name], None)
-        print(json.dumps({"timing": name, "clock": "device", "l2": "warm", "median_ms": med, "min_ms": lo,
-                          "max_ms": hi, "runs": RUNS, "card": smi}), flush=True)
+        for name in (f"heat_{label}_kernel", f"heat_{label}_kernel_streaming", f"heat_{label}_kernel_planes"):
+            med, lo, hi = device_ms(torch, timings[name], None)
+            ms[name + "_warm"] = med
+            print(json.dumps({"timing": name, "clock": "device", "l2": "warm", "median_ms": med, "min_ms": lo,
+                              "max_ms": hi, "runs": RUNS, "card": smi}), flush=True)
+    # the heat slab's profile, and that of a build whose load sweep leaves b
+    # out (its x is wrong: it times the sweep without b's copies)
+    hprofs = {}
+    for build in ("heat_profile", "heat_profile_skip_b"):
+        hprofs[build] = ch._declare(finish_variant(variants[build]))
+        hprofs[build].heat_woodbury_profile_read.argtypes = [ctypes.c_void_p]
+    for label, build in itertools.product(("1d", "2d"), hprofs):
+        _, hc, hb, _ = heat[label]
+        hK, hn = hc.a11r.shape
+        lib = hprofs[build]
+        prof = block_profile(torch, lambda b=hb, c=hc, lib=lib: ch._launch(b, c, 1, c.schedule, lib),
+                             lib.heat_woodbury_profile_read, -(-hn // hc.schedule.cols))
+        print(json.dumps({"phase": "heat_slab_profile" + build[len("heat_profile"):], "shape": label, "K": hK,
+                          "n": hn, "dtype": "float32", **dataclasses.asdict(hc.schedule),
+                          "sms": torch.cuda.get_device_properties(0).multi_processor_count, **prof}), flush=True)
+    for label in ("1d", "2d"):
+        if not ms[f"heat_{label}_kernel"] < ms[f"heat_{label}_kernel_streaming"]:
+            print(json.dumps({"phase": "warning", "what": f"the heat slab kernel is not faster than the streaming one "
+                              f"at the {label} shape, L2 cold", "ms": ms[f"heat_{label}_kernel"],
+                              "streaming_ms": ms[f"heat_{label}_kernel_streaming"]}), flush=True)
     for name in ("heat_1d_solve_cuda_kernel", "heat_2d_solve_cuda_kernel", "heat_1d_solve_polished",
                  "wave_solve_polished"):
         med, lo, hi = wall_ms(torch, timings[name])
@@ -584,12 +666,22 @@ def main() -> int:
         "route": "cuda",
         "source": "optimal_control_paradiag_torch/csrc/heat_woodbury.cu",
         "replaces": "optimal_control_paradiag_tpu/paradiag/pallas_heat.py:35",
-        "launches": heat_launches,
+        "launches": heat_launches["1d"][0],
         "max_abs_err": heat["1d"][3],
         "ms": ms["heat_1d_kernel"],
         "plain_ms": ms["heat_1d_twin"],
         **heat_bounds["1d"],
         "library_ms": None,
+        "launches_by_kind": heat_launches["1d"][1],
+        "streaming_ms": ms["heat_1d_kernel_streaming"],
+        # the 2D lumped shape (K = 33, n = 65025)
+        "launches_2d": heat_launches["2d"][0],
+        "max_abs_err_2d": heat["2d"][3],
+        "ms_2d": ms["heat_2d_kernel"],
+        "plain_ms_2d": ms["heat_2d_twin"],
+        "bound_ms_2d": heat_bounds["2d"]["bound_ms"],
+        "bound_by_2d": heat_bounds["2d"]["bound_by"],
+        "streaming_ms_2d": ms["heat_2d_kernel_streaming"],
     }
     print(json.dumps({"kernels": [b1, b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -598,4 +690,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for proc in _VARIANT_BUILDS:  # stop any variant build a failed run left behind
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    sys.exit(code)

@@ -46,7 +46,8 @@ class BuiltLibrary:
 
 
 _cache: Dict[str, BuiltLibrary] = {}
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
+_lock = threading.Lock()  # guards _locks; each source builds under its own lock
 
 
 def _nvcc() -> str:
@@ -60,8 +61,11 @@ def _nvcc() -> str:
 
 
 def load_library(source: str) -> BuiltLibrary:
-    """Compile (or reuse) ``csrc/<source>`` and load it."""
+    """Compile (or reuse) ``csrc/<source>`` and load it. Different sources
+    may build at once, from different threads."""
     with _lock:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         if source in _cache:
             return _cache[source]
         src = os.path.join(_CSRC, source)

@@ -236,28 +236,36 @@ def streaming_schedule(itemsize: int) -> WoodburySchedule:
     return WoodburySchedule("streaming", _TJ, _KS, 0, (4 * _KS * _TJ + 4 * _TJ) * itemsize)
 
 
-def slab_schedule(K: int, cols: int, itemsize: int) -> WoodburySchedule:
+def slab_schedule(K: int, cols: int, itemsize: int, slab_bytes=_slab_bytes) -> WoodburySchedule:
     """The slab kernel with ``cols`` columns per block (a power of two
     <= 32), whether or not it fits a block: 128 threads for cols <= 4, 256
-    above, so 128 / cols or 256 / cols K-lanes per column."""
+    above, so 128 / cols or 256 / cols K-lanes per column. ``slab_bytes``
+    sizes the kernel's shared memory (this kernel's, or the heat family's
+    with the same signature)."""
     lanes = (128 if cols <= 4 else 256) // cols
     stride = _slab_stride(K, cols, lanes, itemsize)
-    return WoodburySchedule("slab", cols, lanes, stride, _slab_bytes(K, cols, lanes, stride, itemsize))
+    return WoodburySchedule("slab", cols, lanes, stride, slab_bytes(K, cols, lanes, stride, itemsize))
+
+
+def widest_slab(K: int, n: int, itemsize: int, slab_bytes, streaming: WoodburySchedule) -> WoodburySchedule:
+    """The slab schedule with the largest power-of-two column count C <= 32
+    (and no wider than n needs) whose slab, as ``slab_bytes`` sizes it, fits
+    the shared memory a block may use; ``streaming`` when not even one
+    column fits."""
+    cols = min(32, 1 << max(0, (n - 1).bit_length()))
+    while cols >= 1:
+        sched = slab_schedule(K, cols, itemsize, slab_bytes)
+        if sched.smem_bytes <= SMEM_PER_BLOCK_MAX:
+            return sched
+        cols //= 2
+    return streaming
 
 
 def woodbury_schedule(K: int, n: int, itemsize: int) -> WoodburySchedule:
     """The schedule of the fused solve for K bins, n columns and reals of
-    ``itemsize`` bytes: the slab kernel with the largest power-of-two column
-    count C <= 32 (and no wider than n needs) whose slab fits the shared
-    memory a block may use, or the streaming kernel when not even one column
-    fits."""
-    cols = min(32, 1 << max(0, (n - 1).bit_length()))
-    while cols >= 1:
-        sched = slab_schedule(K, cols, itemsize)
-        if sched.smem_bytes <= SMEM_PER_BLOCK_MAX:
-            return sched
-        cols //= 2
-    return streaming_schedule(itemsize)
+    ``itemsize`` bytes: the widest slab that fits a block, or the streaming
+    kernel when not even one column fits."""
+    return widest_slab(K, n, itemsize, _slab_bytes, streaming_schedule(itemsize))
 
 
 @functools.lru_cache(maxsize=None)

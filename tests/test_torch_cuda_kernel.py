@@ -1,10 +1,10 @@
 """The fused Woodbury CUDA kernels (csrc/woodbury.cu for the wave family,
 csrc/heat_woodbury.cu for the heat family) vs their plain PyTorch twins, on
-the card. The wave family has two kernels: the slab kernel, which
-``fused_woodbury`` launches wherever one column's slab fits a block, and
-the streaming kernel, forced here at shapes the slab takes and chosen by the
-schedule at a long K. These tests need a CUDA card and nvcc; they skip
-without one. The file imports no JAX, so it runs on a machine without it:
+the card. Each family has two kernels: the slab kernel, which the wrapper
+launches wherever one column's slab fits a block, and the streaming kernel,
+forced here at shapes the slab takes and chosen by the schedule at a long K.
+These tests need a CUDA card and nvcc; they skip without one. The file
+imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda_kernel.py -q
 
@@ -159,6 +159,21 @@ def test_kernel_rejects_bad_input(cuda):
 HEAT_TOL_F32 = 1e-6  # chip_smoke.py HEAT_TOL_F32
 
 
+def _heat_case(cuda, kw, dtype):
+    prob = HeatControlProblem(ProblemConfig(**kw, dtype=dtype), device=cuda)
+    return ch.pack_heat_constants(prob), time_rfft_conj_packed(prob.space.dst(prob.rhs), kw["N_t"])
+
+
+def _counted(fn, kind):
+    """Run ``fn()``; check it launched one heat kernel, of ``kind``."""
+    before, kinds = ch.fused_heat.launches, dict(ch.fused_heat.kinds)
+    x = fn()
+    torch.cuda.synchronize()
+    assert ch.fused_heat.launches == before + 1
+    assert ch.fused_heat.kinds[kind] == kinds.get(kind, 0) + 1
+    return x
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "kw,dtype,refine,tol",
@@ -168,19 +183,68 @@ HEAT_TOL_F32 = 1e-6  # chip_smoke.py HEAT_TOL_F32
         (dict(N_x=64, N_t=33), torch.float64, 2, 1e-12),
         (dict(N_x=9, N_t=12, dim=2, mass="lumped"), torch.float64, 1, 1e-12),
         (dict(N_x=2048, N_t=1024), torch.float32, 1, HEAT_TOL_F32),
+        (dict(N_x=256, N_t=64, dim=2, mass="lumped"), torch.float32, 1, HEAT_TOL_F32),
     ],
-    ids=["40x24-r0", "40x25-r1", "64x33-r2", "2d-lumped-r1", "headline-f32-r1"],
+    ids=["40x24-r0", "40x25-r1", "64x33-r2", "2d-lumped-r1", "headline-f32-r1", "2d-lumped-256x64-f32-r1"],
 )
 def test_heat_kernel_matches_twin(cuda, kw, dtype, refine, tol):
-    prob = HeatControlProblem(ProblemConfig(**kw, dtype=dtype), device=cuda)
-    c = ch.pack_heat_constants(prob)
-    b_hat = time_rfft_conj_packed(prob.space.dst(prob.rhs), kw["N_t"])
-    before = ch.fused_heat.launches
-    x = ch.fused_heat(b_hat, c, refine)
-    torch.cuda.synchronize()
-    assert ch.fused_heat.launches == before + 1
+    """The slab kernel, which the schedule takes at every one of these
+    shapes (C = 32 at the 2D lumped shape, K = 33, n = 65025)."""
+    c, b_hat = _heat_case(cuda, kw, dtype)
+    assert c.schedule.kind == "slab"
+    x = _counted(lambda: ch.fused_heat(b_hat, c, refine), "slab")
     assert x.dtype == b_hat.dtype and x.shape == b_hat.shape
     assert _rel(x, ch.fused_heat_reference(b_hat, c, refine)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kw,dtype,refine,tol,forced",
+    [
+        (dict(N_x=40, N_t=24), torch.float64, 1, 1e-12, True),
+        (dict(N_x=2048, N_t=1024), torch.float32, 1, HEAT_TOL_F32, True),
+        (dict(N_x=8, N_t=2800), torch.float64, 1, 1e-12, False),
+        (dict(N_x=8, N_t=6000), torch.float32, 1, HEAT_TOL_F32, False),
+    ],
+    ids=["streaming-40x24-f64-r1", "streaming-headline-f32-r1", "long-k-8x2800-f64-r1", "long-k-8x6000-f32-r1"],
+)
+def test_heat_streaming_matches_twin(cuda, kw, dtype, refine, tol, forced):
+    """The streaming kernel forced where the slab would run, and at a long K
+    (1401 bins in float64, 3001 in float32), where one column's slab does
+    not fit a block and the schedule takes it itself."""
+    c, b_hat = _heat_case(cuda, kw, dtype)
+    if forced:
+        assert c.schedule.kind == "slab"
+        x = _counted(lambda: ch._fused_heat_streaming(b_hat, c, refine), "streaming")
+    else:
+        assert c.schedule == ch.heat_streaming_schedule(c.a11r.element_size())
+        x = _counted(lambda: ch.fused_heat(b_hat, c, refine), "streaming")
+    assert x.dtype == b_hat.dtype and x.shape == b_hat.shape
+    assert _rel(x, ch.fused_heat_reference(b_hat, c, refine)) <= tol
+
+
+@pytest.mark.cuda
+def test_heat_refused_slab_launch_raises(cuda):
+    """A slab schedule the launcher or the card refuses raises; nothing
+    falls back to the twin or to the streaming kernel. A schedule other than
+    the one the image was packed for is refused before any launch."""
+    prob = HeatControlProblem(ProblemConfig(N_x=12, N_t=10), device=cuda)
+    c = ch.pack_heat_constants(prob)
+    b_hat = torch.zeros(2, 6, 11, dtype=torch.complex128, device=cuda)
+    sched = c.schedule
+    one = ch.heat_slab_schedule(6, 1, 8)
+    c1 = dataclasses.replace(c, schedule=one, image=ch._slab_image(c.a11r, c.a11i, c.invdet, one))
+    before = ch.fused_heat.launches
+    for consts, bad in ((c, dataclasses.replace(sched, smem_bytes=sched.smem_bytes - 8)),
+                        (c, dataclasses.replace(sched, lanes=3)),
+                        (c1, dataclasses.replace(one, smem_bytes=300_000))):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ch._launch(b_hat, consts, 1, bad)
+    with pytest.raises(ValueError, match="packed for"):
+        ch._launch(b_hat, c, 1, one)
+    assert ch.fused_heat.launches == before
+    x = _counted(lambda: ch.fused_heat(b_hat, c1, 1), "slab")
+    assert x.abs().max().item() == 0.0
 
 
 @pytest.mark.cuda
@@ -188,9 +252,10 @@ def test_heat_kernel_matches_twin(cuda, kw, dtype, refine, tol):
 def test_heat_solve_on_card_matches_cpu(cuda, polish):
     cfg = ProblemConfig(N_x=48, N_t=32)
     solver = SolverConfig(method="woodbury", use_pallas=True, polish=polish)
-    before = ch.fused_heat.launches
+    before, slabs = ch.fused_heat.launches, ch.fused_heat.kinds["slab"]
     s_gpu = HeatControlProblem(cfg, device=cuda).solve(solver)
     assert ch.fused_heat.launches == before + 1 + polish
+    assert ch.fused_heat.kinds["slab"] == slabs + 1 + polish
     s_cpu = HeatControlProblem(cfg, device="cpu").solve(solver)
     assert _rel(s_gpu.u.cpu(), s_cpu.u) <= 1e-11
     assert _rel(s_gpu.p.cpu(), s_cpu.p) <= 1e-11
