@@ -52,7 +52,22 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     heat slab kernel, the streaming kernel and the slab built to load its
     constants from the (K, n) planes (cold and warm); print the heat slab's
     per-phase profile at both shapes, and that of a build whose load sweep
-    leaves b out.
+    leaves b out;
+13. GMRES with the ParaDiag preconditioner, the reference's own algorithm:
+    its default run (``reference_1d_default()``, float64, rtol 1e-8) on the
+    card and on the CPU, the same iterations (<= 10) and ``error_aligned``
+    (1e-10 apart), residual below 1e-8; then on the card the ``eig``
+    variant with each inner solver (dst, Thomas, PCR, COCG), each within
+    one iteration of ``fulldiag`` and its u within 1e-6;
+14. GMRES at the wave headline width (N_x = 2048, N_t = 1024, float64,
+    rtol 1e-8): at most 30 iterations, float64 oracle residual <= 1e-6;
+    the clamped restart; the right-preconditioned run (printed);
+15. heat GMRES (float64, rtol 1e-10) at both heat shapes: at most 5
+    iterations, float64 residual <= 1e-8;
+16. time the GMRES solves (device and host wall), one Arnoldi step, one
+    ``fulldiag`` apply and one float64 matvec, and count the host
+    synchronisations of a step and of a solve (torch's CUDA sync debug
+    mode, and a count of ``.cpu()``/``.item()``/``synchronize`` calls).
 
 It prints one JSON line per timing, then the kernels line, and last the
 device line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -60,6 +75,7 @@ device line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import ctypes
 import dataclasses
@@ -71,6 +87,7 @@ import subprocess
 import sys
 import time
 import unittest.mock
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -95,6 +112,16 @@ DWORD_MAX_REL_RESIDUAL = 1e-6
 # one on the same input (phase 7 prints both). The rank-2 capacity
 # correction hardly amplifies the reordering; the gate leaves a margin of 8.
 HEAT_TOL_F32 = 1e-6
+DEVICE = "cuda"  # where the GMRES phases run their card side
+# GMRES (float64): the SKILL run's gates, the mesh-independence bound of the
+# JAX package's tests/test_endtoend.py:89, and tests/test_heat.py:23.
+GMRES_REF_MAX_ITERS = 10
+GMRES_REF_MAX_RESIDUAL = 1e-8
+GMRES_INNER_U_TOL = 1e-6
+GMRES_HEADLINE_MAX_ITERS = 30
+GMRES_HEADLINE_MAX_REL_RESIDUAL = 1e-6
+HEAT_GMRES_MAX_ITERS = 5
+HEAT_GMRES_MAX_REL_RESIDUAL = 1e-8
 RUNS, WARMUP = 20, 5
 # ~20 ms at the H100's 1.98 GHz: longer than any enqueue timed here, the
 # polished solves included
@@ -149,6 +176,37 @@ def wall_ms(torch, fn, runs=RUNS, warmup=WARMUP):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times), min(times), max(times)
+
+
+def count_syncs(torch, fn):
+    """``fn()`` and the host synchronisations it made, counted two ways:
+    the synchronizing CUDA operations torch's sync debug mode reports, and
+    the calls of ``Tensor.cpu``/``Tensor.item`` on CUDA tensors and of
+    ``torch.cuda.synchronize``."""
+    calls = {"n": 0}
+
+    def counted(orig, on_cuda=True):
+        def wrapper(*args, **kwargs):
+            if not on_cuda or (args and getattr(args[0], "is_cuda", False)):
+                calls["n"] += 1
+            return orig(*args, **kwargs)
+        return wrapper
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec, \
+            unittest.mock.patch.object(torch.Tensor, "cpu", counted(torch.Tensor.cpu)), \
+            unittest.mock.patch.object(torch.Tensor, "item", counted(torch.Tensor.item)), \
+            unittest.mock.patch.object(torch.cuda, "synchronize", counted(torch.cuda.synchronize, False)):
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in rec
+                                if "synchroniz" in str(w.message))
+    return out, {"sync_debug": sum(sites.values()), "explicit_calls": calls["n"], "sync_sites": dict(sites)}
 
 
 def roofline(nbytes: int, flops: int) -> dict:
@@ -240,6 +298,152 @@ def slab_profile(torch, cw, lib, b_hat, consts, sched) -> dict:
         "woodbury_slab", {torch.float32: lib.woodbury_slab_f32}, lib.woodbury_error_string, b_hat, consts,
         cw._CONST_SHAPES, 1, (sched.cols, sched.lanes, sched.stride, sched.smem_bytes))
     return block_profile(torch, launch, lib.woodbury_profile_read, -(-consts.a11r.shape[1] // sched.cols))
+
+
+def gmres_phases(torch, smi, flush):
+    """Phases 13-16: GMRES with the ParaDiag preconditioner, both families.
+    Prints one JSON line per result and timing; returns None, or what failed."""
+    import numpy as np
+
+    from optimal_control_paradiag_torch import (
+        HeatControlProblem,
+        ProblemConfig,
+        SolverConfig,
+        WaveControlProblem,
+        reference_1d_default,
+    )
+    from optimal_control_paradiag_torch.krylov.gmres import arnoldi_step, clamp_restart, givens_update
+    from optimal_control_paradiag_torch.paradiag.pc import build_preconditioner
+
+    # 13. the reference's default run, card and CPU; the eig inner solvers
+    ref = {}
+    for dev in (DEVICE, "cpu"):
+        rp = WaveControlProblem(reference_1d_default(), device=dev)
+        rs = rp.solve(SolverConfig(rtol=1e-8))
+        ref[dev] = (rp, rs, int(rs.result.iterations), bool(rs.result.converged), rp.error_aligned(rs),
+                    float(rp.residual_norm(rs)))
+    (rp, rs, it_g, conv_g, e_g, res_g), (_, _, it_c, conv_c, e_c, res_c) = ref[DEVICE], ref["cpu"]
+    print(json.dumps({"phase": "gmres_reference_default", "dtype": "float64", "rtol": 1e-8,
+                      "iterations_cuda": it_g, "iterations_cpu": it_c, "converged_cuda": conv_g,
+                      "converged_cpu": conv_c, "error_aligned_cuda": e_g, "error_aligned_cpu": e_c,
+                      "residual_norm_cuda": res_g, "residual_norm_cpu": res_c,
+                      "gates": {"iterations": GMRES_REF_MAX_ITERS, "error_aligned": ERROR_ALIGNED_TOL,
+                                "residual_norm": GMRES_REF_MAX_RESIDUAL}}), flush=True)
+    if not (conv_g and conv_c and it_g == it_c <= GMRES_REF_MAX_ITERS):
+        return f"reference GMRES: converged {conv_g}/{conv_c}, iterations {it_g} (card) vs {it_c} (CPU)"
+    if not abs(e_g - e_c) <= ERROR_ALIGNED_TOL:
+        return f"reference GMRES error_aligned differs between card and CPU: {e_g!r} vs {e_c!r}"
+    if not (res_g < GMRES_REF_MAX_RESIDUAL and res_c < GMRES_REF_MAX_RESIDUAL):
+        return f"reference GMRES residual_norm {res_g:.3e} (card), {res_c:.3e} (CPU)"
+    for inner in ("dst", "tridiag_thomas", "tridiag_pcr", "cocg"):
+        es = rp.solve(SolverConfig(rtol=1e-8, inner=inner))
+        it_e, du = int(es.result.iterations), (es.u - rs.u).abs().max().item()
+        print(json.dumps({"phase": "gmres_eig_inner", "inner": inner, "iterations": it_e,
+                          "iterations_fulldiag": it_g, "converged": bool(es.result.converged),
+                          "max_abs_u_diff": du, "tol": GMRES_INNER_U_TOL}), flush=True)
+        if not (bool(es.result.converged) and abs(it_e - it_g) <= 1 and du <= GMRES_INNER_U_TOL):
+            return f"eig GMRES with inner={inner}: {it_e} iterations vs {it_g}, u differs by {du:.3e}"
+    del ref, rp, rs, es
+
+    # 14. GMRES at the wave headline width, float64
+    gprob = WaveControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float64), device=DEVICE)
+    gop = gprob.operator
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        restart = clamp_restart(SolverConfig().restart, gop.shape, torch.float64, SolverConfig().maxiter)
+    warnings.filterwarnings("ignore", message="GMRES restart")  # printed once here
+    gcfg = SolverConfig(method="gmres", rtol=1e-8)
+    t0 = time.perf_counter()
+    gsol = gprob.solve(gcfg)
+    torch.cuda.synchronize()
+    first_solve_s = time.perf_counter() - t0
+    g_its, g_conv = int(gsol.result.iterations), bool(gsol.result.converged)
+    g_rel = gprob.relative_residual_f64(gsol)
+    finite = bool(torch.isfinite(gsol.u).all() and torch.isfinite(gsol.p).all())
+    rsol = gprob.solve(SolverConfig(method="gmres", rtol=1e-8, pc_side="right"))
+    print(json.dumps({"phase": "gmres_headline", "N_x": N_X, "N_t": N_T, "dtype": "float64", "rtol": 1e-8,
+                      "restart": restart, "restart_requested": SolverConfig().restart,
+                      "clamp_warning": str(rec[0].message) if rec else None,
+                      "iterations": g_its, "converged": g_conv, "first_solve_s": first_solve_s,
+                      "relative_residual_f64": g_rel, "final_residual_norm": float(gsol.result.residual_norm),
+                      "gates": {"iterations": GMRES_HEADLINE_MAX_ITERS,
+                                "relative_residual_f64": GMRES_HEADLINE_MAX_REL_RESIDUAL},
+                      "right_iterations": int(rsol.result.iterations),
+                      "right_converged": bool(rsol.result.converged),
+                      "right_relative_residual_f64": gprob.relative_residual_f64(rsol)}), flush=True)
+    if gsol.u.shape != (N_T, gprob.space.n) or gsol.u.device.type != DEVICE or not finite:
+        return f"headline GMRES u has {tuple(gsol.u.shape)} on {gsol.u.device}, finite {finite}"
+    if not (g_conv and g_its <= GMRES_HEADLINE_MAX_ITERS):
+        return f"headline GMRES: converged {g_conv} in {g_its} iterations (gate {GMRES_HEADLINE_MAX_ITERS})"
+    if not g_rel <= GMRES_HEADLINE_MAX_REL_RESIDUAL:
+        return f"headline GMRES residual {g_rel:.3e} > {GMRES_HEADLINE_MAX_REL_RESIDUAL}"
+    del rsol
+
+    # 15. heat GMRES at both heat shapes, float64
+    heat_gm = {}
+    for label, shape in (("1d", HEAT_1D), ("2d", HEAT_2D)):
+        hp = HeatControlProblem(ProblemConfig(**shape), device=DEVICE)
+        hs = hp.solve(SolverConfig(method="gmres", rtol=1e-10))
+        h_its, h_conv, h_rel = int(hs.result.iterations), bool(hs.result.converged), hp.relative_residual_f64(hs)
+        print(json.dumps({"phase": f"heat_gmres_{label}", **shape, "dtype": "float64", "rtol": 1e-10,
+                          "iterations": h_its, "converged": h_conv, "relative_residual_f64": h_rel,
+                          "gates": {"iterations": HEAT_GMRES_MAX_ITERS,
+                                    "relative_residual_f64": HEAT_GMRES_MAX_REL_RESIDUAL}}), flush=True)
+        if not (h_conv and h_its <= HEAT_GMRES_MAX_ITERS and h_rel <= HEAT_GMRES_MAX_REL_RESIDUAL):
+            return f"heat {label} GMRES: converged {h_conv} in {h_its} iterations, residual {h_rel:.3e}"
+        heat_gm[label] = (hp, h_its)
+
+    # 16. GMRES timings and host synchronisations
+    gm_solve = gprob.make_solver_fn(gcfg)
+    grhs = gprob.rhs
+    pc = build_preconditioner(gop)
+    k = g_its - 1  # the solve's last (widest) Arnoldi step
+    V = torch.empty((k + 2, grhs.numel()), dtype=torch.float64, device=DEVICE)
+    V[: k + 1].normal_()  # the step's work does not depend on the rows' values
+    V[: k + 1] /= V[: k + 1].norm(dim=1, keepdim=True)
+    left_op = lambda v: pc(gop.matvec(v))
+    R, cs = np.zeros((k + 1, k + 1)), np.ones(k + 1)
+    sn, g = np.zeros(k + 1), np.ones(k + 2)
+    hcol = arnoldi_step(left_op, V, k, gop.shape).cpu().numpy()
+
+    def full_step():  # what the solve does per step: device part, the copy, the host part
+        givens_update(arnoldi_step(left_op, V, k, gop.shape).cpu().numpy(), k, R, cs, sn, g)
+
+    host = []
+    for _ in range(200):
+        h = hcol.copy()
+        t0 = time.perf_counter()
+        givens_update(h, k, R, cs, sn, g)
+        host.append((time.perf_counter() - t0) * 1e3)
+    timings = {
+        "gmres_wave_headline_solve": lambda: gm_solve(grhs),
+        "gmres_arnoldi_step": lambda: arnoldi_step(left_op, V, k, gop.shape),
+        "gmres_fulldiag_pc_apply": lambda: pc(grhs),
+        "gmres_wave_matvec_f64": lambda: gop.matvec(grhs),
+        "gmres_heat_1d_solve": lambda p=heat_gm["1d"][0]: p.solve(SolverConfig(method="gmres", rtol=1e-10)),
+        "gmres_heat_2d_solve": lambda p=heat_gm["2d"][0]: p.solve(SolverConfig(method="gmres", rtol=1e-10)),
+    }
+    for name, fn in timings.items():
+        med, lo, hi = device_ms(torch, fn, flush)
+        print(json.dumps({"timing": name, "clock": "device", "l2": "cold", "median_ms": med, "min_ms": lo,
+                          "max_ms": hi, "runs": RUNS, "card": smi}), flush=True)
+    for name, fn in (("gmres_wave_headline_solve", timings["gmres_wave_headline_solve"]),
+                     ("gmres_arnoldi_step_with_host_part", full_step),
+                     ("gmres_heat_1d_solve", timings["gmres_heat_1d_solve"]),
+                     ("gmres_heat_2d_solve", timings["gmres_heat_2d_solve"])):
+        med, lo, hi = wall_ms(torch, fn)
+        print(json.dumps({"timing": name, "clock": "host_wall", "median_ms": med, "min_ms": lo,
+                          "max_ms": hi, "runs": RUNS, "card": smi}), flush=True)
+    print(json.dumps({"timing": "gmres_givens_update_host", "clock": "host", "k": k,
+                      "median_ms": statistics.median(host), "min_ms": min(host), "max_ms": max(host),
+                      "runs": len(host), "card": smi}), flush=True)
+    _, step_syncs = count_syncs(torch, full_step)
+    syncs = {"arnoldi_step": step_syncs}
+    for name in ("gmres_wave_headline_solve", "gmres_heat_1d_solve", "gmres_heat_2d_solve"):
+        _, syncs[name] = count_syncs(torch, timings[name])
+    print(json.dumps({"phase": "gmres_host_syncs", "k": k, "iterations": {"wave": g_its, "heat_1d": heat_gm["1d"][1],
+                      "heat_2d": heat_gm["2d"][1]}, "restart": restart, **syncs}), flush=True)
+    return None
 
 
 def main() -> int:
@@ -683,6 +887,10 @@ def main() -> int:
         "bound_by_2d": heat_bounds["2d"]["bound_by"],
         "streaming_ms_2d": ms["heat_2d_kernel_streaming"],
     }
+    err = gmres_phases(torch, smi, flush)
+    if err:
+        return fail(err)
+
     print(json.dumps({"kernels": [b1, b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -18,6 +18,14 @@ the spectral solve as one hand-written CUDA kernel per family:
 ``polish`` adds physical-space defect correction
 (``paradiag.spectral.build_polished_solver``) to either family.
 
+``method='gmres'`` (the default) runs the reference's own algorithm:
+restarted GMRES (``krylov/gmres.py``) preconditioned by the block-circulant
+ParaDiag preconditioner (``paradiag/pc.py``: 'fulldiag', or 'eig' with the
+inner solvers of ``paradiag/inner.py``; the heat family's
+``HeatControlProblem.build_preconditioner``). It launches no hand kernel:
+
+    WaveControlProblem(reference_1d_default()).solve(SolverConfig(rtol=1e-8))
+
 Entry points run on the card (``device='cuda'``) unless the caller passes
 ``device='cpu'``.
 """

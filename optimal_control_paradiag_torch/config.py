@@ -74,14 +74,23 @@ class ProblemConfig:
 class SolverConfig:
     """Solver options; the same fields as the JAX package's ``SolverConfig``.
 
-    The port runs ``method='woodbury'`` (the Sherman-Morrison-Woodbury direct
-    solve in ParaDiag-diagonalized coordinates, rank 4 for the wave family
-    and rank 2 for the heat family) with ``refine`` spectral and ``polish``
-    physical-space defect-correction steps; ``use_pallas=True`` routes it
-    through the family's fused CUDA kernel (``paradiag/cuda_woodbury.py``,
-    ``paradiag/cuda_heat.py``). The other fields
-    are validated as in the JAX package and read by methods still to be
-    ported (ROADMAP Queue A).
+    The port runs two methods:
+
+    - ``method='gmres'`` (the default, the reference's own algorithm):
+      restarted GMRES (``restart``, ``rtol``, ``atol``, ``maxiter``,
+      ``pc_side``) preconditioned by the ParaDiag preconditioner
+      (``pc='paradiag'``; ``pc_variant`` 'fulldiag' or 'eig'; ``inner``
+      'auto', 'dst', 'tridiag_thomas', 'tridiag_pcr' or 'cocg', with
+      ``inner_tol`` and ``inner_maxiter`` for COCG);
+    - ``method='woodbury'``: the Sherman-Morrison-Woodbury direct solve in
+      ParaDiag-diagonalized coordinates, rank 4 for the wave family and
+      rank 2 for the heat family, with ``refine`` spectral and ``polish``
+      physical-space defect-correction steps; ``use_pallas=True`` routes it
+      through the family's fused CUDA kernel (``paradiag/cuda_woodbury.py``,
+      ``paradiag/cuda_heat.py``).
+
+    The other methods and preconditioner variants are validated as in the
+    JAX package and raise ``NotImplementedError`` naming their ROADMAP item.
     """
 
     method: str = "gmres"

@@ -583,7 +583,10 @@ cudaError_t launch_slab_lanes(const T* b, T* x, const T* a11r, const T* a11i, co
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         woodbury_slab_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch's check would report it again
+      return err;
+    }
   }
   woodbury_slab_kernel<T, L><<<(n + cols - 1) / cols, cols * L, smem, stream>>>(
       b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, ks);

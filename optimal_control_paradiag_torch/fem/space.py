@@ -274,6 +274,25 @@ class P1Space:
         """True when both M and K are diagonalized by the sine transform."""
         return self.spectrum[0] is not None
 
+    @functools.cached_property
+    def spectrum_tensor(self) -> np.ndarray:
+        """Sine-basis spectrum of the tensor-product part of the mass matrix,
+        a flat host array of length ``n``: ``spectrum[0]`` where the sine
+        transform diagonalizes M. For the 2D consistent (Friedrichs-Keller)
+        mass, ``M = M_t + (h^2/24) S_x (x) S_y`` with
+        ``M_t = (h^2/12)(6 I + C_x + C_y + C_x C_y / 2)``, ``C = T+ + T-``
+        (sine eigenvalue ``2 cos(pi j / N_x)``) and ``S = T+ - T-``, whose
+        tensor product has a zero diagonal in the sine basis: ``M_t`` is the
+        optimal sine-diagonal surrogate of M, the spectral preconditioner of
+        the COCG inner solves."""
+        muM, _ = self.spectrum
+        if muM is not None:
+            return muM
+        c = np.cos(np.pi * np.arange(1, self.N_x) / self.N_x)
+        h = self.h
+        mt = (h * h / 12.0) * (6.0 + 2.0 * c[:, None] + 2.0 * c[None, :] + 2.0 * np.outer(c, c))
+        return host_const(mt.ravel(), self.dtype)
+
 
 def make_space(
     dim: int,

@@ -27,7 +27,9 @@ bins, exactly parallel to the wave family's rank-4 one.
 The port has the diagonalizable ``method='woodbury'`` branch (1D, or 2D with
 ``mass='lumped'``): ``use_pallas=True`` routes it to the hand-written CUDA
 kernel (``paradiag/cuda_heat.py``), and ``polish`` adds physical-space defect
-correction. The other methods and the 2D consistent-mass branch raise
+correction. ``method='gmres'`` runs GMRES with the circulant ParaDiag
+preconditioner (:meth:`HeatControlProblem.build_preconditioner`). The other
+methods and the 2D consistent-mass Woodbury branch raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -42,8 +44,10 @@ import torch
 
 from optimal_control_paradiag_torch.config import ProblemConfig, SolverConfig
 from optimal_control_paradiag_torch.fem.space import P1Space, make_space, require_full_fp32_matmul
+from optimal_control_paradiag_torch.krylov.gmres import gmres
 from optimal_control_paradiag_torch.ops.allatonce import tshift
 from optimal_control_paradiag_torch.paradiag import spectral
+from optimal_control_paradiag_torch.paradiag.pc import complex_dtype
 from optimal_control_paradiag_torch.paradiag.spectral import (
     make_halfspectrum_transforms,
     pairing_weights,
@@ -51,10 +55,9 @@ from optimal_control_paradiag_torch.paradiag.spectral import (
 from optimal_control_paradiag_torch.utils.constants import host_f64, resolve_device, to_device
 
 # Where each part that the port does not have yet stands in ROADMAP Queue A.
-_ITEM5 = "item 5 (GMRES + ParaDiag preconditioner)"
 _ITEM8 = "item 8 (MINRES, spectral GMRES and direct)"
 _ITEM9 = "item 9 (2D consistent mass)"
-_NOT_PORTED = {"gmres": _ITEM5, "minres": _ITEM8, "direct": _ITEM8}
+_NOT_PORTED = {"minres": _ITEM8, "direct": _ITEM8}
 
 
 def _not_ported(what: str, item: str):
@@ -329,8 +332,32 @@ class HeatControlProblem:
         base = self._base_solver(refine, use_pallas)
         return spectral.build_polished_solver(self, polish=polish, dword=dword, base_solver=base)
 
-    def build_preconditioner(self):
-        _not_ported("the circulant ParaDiag preconditioner", _ITEM5)
+    def build_preconditioner(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The circulant ParaDiag preconditioner, the heat family's
+        ``fulldiag``: rfft over time of ``dst(r)`` (conjugated, scaled by
+        1/N_t), the per-(mode, wavenumber) 2x2 Cramer inverse from the
+        float64 :meth:`_plan`, then irfft and idst. Raises ``ValueError`` on
+        the 2D consistent mass, as the plan does."""
+        require_full_fp32_matmul()
+        sp = self.space
+        N_t = self.config.N_t
+        K = N_t // 2 + 1
+        rdtype, dev = self.config.dtype, self.device
+        cdtype = complex_dtype(rdtype)
+        _, _, _, a11_h, tm_h, det_h = self._plan()
+        a11 = to_device(a11_h[:K], cdtype, dev)
+        a22 = to_device(np.conj(a11_h[:K]), cdtype, dev)
+        tm = to_device(tm_h, rdtype, dev)
+        invdet = to_device(1.0 / det_h[:K], rdtype, dev)
+
+        def apply_pc(r):
+            rh = torch.conj_physical(torch.fft.rfft(sp.dst(r), dim=1)) * (1.0 / N_t)
+            yu = (a22 * rh[0] + tm * rh[1]) * invdet
+            yp = (a11 * rh[1] - tm * rh[0]) * invdet
+            y = torch.fft.irfft(torch.conj_physical(torch.stack([yu, yp])), n=N_t, dim=1) * float(N_t)
+            return sp.idst(y)
+
+        return apply_pc
 
     def build_symmetric_system(self, layout=None, time_transform=None):
         _not_ported("the symmetrized system", _ITEM8)
@@ -344,6 +371,16 @@ class HeatControlProblem:
     # ----------------------------------------------------------------- solve
 
     def _make_solver(self, solver: SolverConfig):
+        if solver.method == "gmres":
+            # as the JAX package: left-preconditioned, from x0 = 0
+            pc = self.build_preconditioner() if solver.pc == "paradiag" else None
+
+            def run(b):
+                res = gmres(self.matvec, b, M=pc, restart=solver.restart, rtol=solver.rtol,
+                            atol=solver.atol, maxiter=solver.maxiter)
+                return res.x, res
+
+            return run
         if solver.method != "woodbury":
             if solver.method not in _NOT_PORTED:
                 raise NotImplementedError(f"heat model: method {solver.method!r}")

@@ -3,8 +3,10 @@
 The counterpart of ``optimal_control_paradiag_tpu/models/wave.py``: space and
 operator setup, the manufactured data (f, g, u0, u1), the right-hand side,
 the solve, and validation against the manufactured solution. The port has
-the diagonalizable ``method='woodbury'`` branch, with ``polish``; the other
-methods raise ``NotImplementedError`` naming their ROADMAP item.
+the diagonalizable ``method='woodbury'`` branch, with ``polish``, and
+``method='gmres'``, the reference's own algorithm: restarted GMRES with the
+ParaDiag preconditioner (``fulldiag`` or ``eig`` with its inner solvers). The
+other methods raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,8 +20,16 @@ import torch
 
 from optimal_control_paradiag_torch.config import ProblemConfig, SolverConfig
 from optimal_control_paradiag_torch.fem.space import P1Space, make_space
+from optimal_control_paradiag_torch.krylov.gmres import gmres
 from optimal_control_paradiag_torch.models.analytic import manufactured
 from optimal_control_paradiag_torch.ops.allatonce import build_operator, build_rhs
+from optimal_control_paradiag_torch.paradiag.inner import (
+    make_cocg_inner_solver,
+    make_dst_inner_solver,
+    make_jacobi_cocg_inner_solver,
+    make_tridiag_inner_solver,
+)
+from optimal_control_paradiag_torch.paradiag.pc import build_preconditioner
 from optimal_control_paradiag_torch.paradiag.spectral import (
     build_polished_solver,
     build_woodbury_solver,
@@ -29,7 +39,6 @@ from optimal_control_paradiag_torch.utils.constants import host_f64, resolve_dev
 
 # Where each method that the port does not have yet stands in ROADMAP Queue A.
 _NOT_PORTED = {
-    "gmres": "item 5 (GMRES + ParaDiag preconditioner)",
     "minres": "item 8 (MINRES, spectral GMRES and direct)",
     "spectral": "item 8 (MINRES, spectral GMRES and direct)",
     "direct": "item 8 (MINRES, spectral GMRES and direct)",
@@ -114,6 +123,8 @@ class WaveControlProblem:
 
     def _make_solver(self, solver: SolverConfig):
         op = self.operator
+        if solver.method == "gmres":
+            return self._make_gmres_solver(solver)
         if solver.method != "woodbury":
             raise NotImplementedError(
                 f"method={solver.method!r} is not ported yet: ROADMAP Queue A "
@@ -142,6 +153,64 @@ class WaveControlProblem:
 
         return run
 
+    def _make_gmres_solver(self, solver: SolverConfig):
+        """GMRES on the all-at-once system, preconditioned as the JAX
+        package's ``gmres`` branch routes it: ``inner='auto'`` keeps
+        ``pc_variant``; an explicit inner solver selects the ``eig`` variant
+        with that per-mode solve."""
+        op = self.operator
+        cfg = self.config
+        pc_apply = None
+        if solver.pc == "paradiag":
+            variant = solver.pc_variant
+            inner = None
+            if solver.inner == "auto":
+                if not self.space.diagonalizable and variant == "fulldiag":
+                    # the JAX package picks 'blockline' or 'block' here
+                    raise NotImplementedError(
+                        "GMRES on a non-sine-diagonalizable space (2D consistent mass) routes "
+                        "inner='auto' to the blockline/block preconditioners, which are not "
+                        "ported yet: ROADMAP Queue A items 9 and 10"
+                    )
+            elif solver.inner == "dst":
+                variant = "eig"
+                inner = make_dst_inner_solver(self.space, cfg.dt)
+            elif solver.inner in ("tridiag_thomas", "tridiag_pcr"):
+                variant = "eig"
+                inner = make_tridiag_inner_solver(self.space, cfg.dt, method=solver.inner.split("_")[1])
+            elif solver.inner == "cocg":
+                variant = "eig"
+                inner = make_cocg_inner_solver(self.space, cfg.dt, solver.inner_tol, solver.inner_maxiter)
+            elif solver.inner == "cocg_jacobi":
+                variant = "eig"
+                inner = make_jacobi_cocg_inner_solver(
+                    self.space, cfg.dt, solver.inner_tol, solver.inner_maxiter
+                )
+            pc_apply = build_preconditioner(op, variant=variant, inner_solver=inner)
+
+        # float32 on non-sine-diagonalizable spaces: the cancellation-aware
+        # matvec, as in the JAX package (the port has no such space that
+        # reaches GMRES in float32 yet: 2D consistent mass raises above
+        # unless an explicit inner solver is given).
+        f32 = cfg.dtype == torch.float32
+        mv = op.matvec_accurate if (f32 and not self.space.diagonalizable) else op.matvec
+
+        def run(b, x0=None):
+            res = gmres(
+                mv,
+                b,
+                M=pc_apply,
+                x0=x0,
+                restart=solver.restart,
+                rtol=solver.rtol,
+                atol=solver.atol,
+                maxiter=solver.maxiter,
+                side=solver.pc_side,
+            )
+            return res.x, res
+
+        return run
+
     def make_solver_fn(self, solver: Optional[SolverConfig] = None):
         """The cached solve function ``b -> (x_scaled, result)`` for a
         given config."""
@@ -154,8 +223,9 @@ class WaveControlProblem:
         self, solver: Optional[SolverConfig] = None, x0: Optional[torch.Tensor] = None
     ) -> WaveSolution:
         """Solve the all-at-once system; returns physical (unscaled) u, p.
-        ``x0`` is accepted for the iterative methods; the direct solve
-        ignores it."""
+        ``x0``: the warm-start iterate of ``method='gmres'``, in scaled
+        unknowns ``(2, N_t, n)`` (rtol is then relative to its initial
+        residual, PETSc's rule); the direct solve ignores it."""
         x, res = self.make_solver_fn(solver)(self.rhs, x0)
         u, p = self._unscale(x)
         return WaveSolution(u=u, p=p, result=res)

@@ -39,6 +39,8 @@ class AllAtOnceOperator:
     dt: float
     gamma: float
     scaled: bool
+    # the (cu, cp) columns of _half_rows, one pair per (dtype, device)
+    _half_cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def c_up(self) -> float:
@@ -58,12 +60,17 @@ class AllAtOnceOperator:
 
     def _half_rows(self, x: torch.Tensor):
         """(cu, cp): the 1/2 coupling weights of the i=0 u-row and the
-        i=N_t-1 p-row, as (N_t, 1) columns of x's dtype."""
-        cu = torch.ones((self.N_t, 1), dtype=x.dtype, device=x.device)
-        cp = torch.ones((self.N_t, 1), dtype=x.dtype, device=x.device)
-        cu[0, 0] = 0.5
-        cp[-1, 0] = 0.5
-        return cu, cp
+        i=N_t-1 p-row, as (N_t, 1) columns of x's dtype. Every matvec needs
+        them, so they are made once per dtype and device: making them
+        writes two Python scalars into device tensors."""
+        key = (x.dtype, x.device)
+        if key not in self._half_cache:
+            cu = torch.ones((self.N_t, 1), dtype=x.dtype, device=x.device)
+            cp = torch.ones((self.N_t, 1), dtype=x.dtype, device=x.device)
+            cu[0, 0] = 0.5
+            cp[-1, 0] = 0.5
+            self._half_cache[key] = (cu, cp)
+        return self._half_cache[key]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """A @ x for x of shape ``(2, N_t, n)`` (u = x[0], p = x[1])."""

@@ -132,6 +132,25 @@ def test_refused_slab_launch_raises(cuda):
 
 
 @pytest.mark.cuda
+def test_refused_slab_launch_leaves_no_stale_error(cuda):
+    """A launch whose shared-memory request the card refuses
+    (``cudaFuncSetAttribute``) clears CUDA's last error: the next good
+    launch on the same stream succeeds and matches the twin."""
+    prob = WaveControlProblem(ProblemConfig(N_x=12, N_t=10), device=cuda)
+    c = cw.pack_constants(prob.operator)
+    rng = np.random.default_rng(7)
+    noise = rng.standard_normal((2, 6, 11)) + 1j * rng.standard_normal((2, 6, 11))
+    b_hat = torch.from_numpy(noise).to(cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cw._launch(b_hat, c, 1, cw.WoodburySchedule("slab", 1, 128, 6, 300_000))
+    before = cw.fused_woodbury.launches
+    x = cw.fused_woodbury(b_hat, c, 1)
+    torch.cuda.synchronize()
+    assert cw.fused_woodbury.launches == before + 1
+    assert _rel(x, cw.fused_woodbury_reference(b_hat, c, 1)) <= 1e-12
+
+
+@pytest.mark.cuda
 def test_solve_on_card_matches_cpu(cuda):
     cfg = ProblemConfig(N_x=48, N_t=32)
     solver = SolverConfig(method="woodbury", use_pallas=True)

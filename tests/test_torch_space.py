@@ -95,6 +95,34 @@ def test_operator_and_rhs_match_jax(kw, scaled, gamma):
     )
 
 
+def _half_rows_uncached(op, x):
+    """``AllAtOnceOperator._half_rows`` as it was before its columns were
+    cached: built anew on every call."""
+    cu = torch.ones((op.N_t, 1), dtype=x.dtype, device=x.device)
+    cp = torch.ones((op.N_t, 1), dtype=x.dtype, device=x.device)
+    cu[0, 0] = 0.5
+    cp[-1, 0] = 0.5
+    return cu, cp
+
+
+@pytest.mark.parametrize("kw", SPACES, ids=IDS)
+def test_cached_half_rows_leave_matvecs_bitwise_unchanged(kw, monkeypatch):
+    """The cached (cu, cp) columns give bit for bit the matvecs of the
+    uncached ones, in both dtypes, on repeated and interleaved calls."""
+    top = t_build_operator(t_make_space(**kw, device="cpu"), 7, 0.3, 0.5)
+    rng = np.random.default_rng(9)
+    xs = {dt: torch.from_numpy(rng.standard_normal((2, 7, top.space.n))).to(dt)
+          for dt in (torch.float64, torch.float32)}
+    with monkeypatch.context() as m:
+        m.setattr(type(top), "_half_rows", _half_rows_uncached)
+        before = {dt: (top.matvec(x), top.matvec_accurate(x)) for dt, x in xs.items()}
+    for _ in range(2):
+        for dt, x in xs.items():
+            assert torch.equal(top.matvec(x), before[dt][0])
+            assert torch.equal(top.matvec_accurate(x), before[dt][1])
+    assert len(top._half_cache) == 2
+
+
 def test_float32_stencils_stay_float32():
     ts = t_make_space(dim=1, N_x=9, dtype=torch.float32, device="cpu")
     x = torch.ones(4, ts.n, dtype=torch.float32)

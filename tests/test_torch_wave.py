@@ -107,9 +107,15 @@ def test_port_imports_no_jax():
         "p = WaveControlProblem(ProblemConfig(N_x=8, N_t=6), device='cpu')\n"
         "s = p.solve(SolverConfig(method='woodbury', use_pallas=True))\n"
         "assert p.relative_residual_f64(s) < 1e-10\n"
+        "s = p.solve(SolverConfig(rtol=1e-10, inner='cocg'))\n"
+        "assert bool(s.result.converged) and p.relative_residual_f64(s) < 1e-8\n"
+        "s = p.solve(SolverConfig(rtol=1e-10, inner='tridiag_pcr'))\n"
+        "assert bool(s.result.converged) and p.relative_residual_f64(s) < 1e-8\n"
         "h = HeatControlProblem(ProblemConfig(N_x=8, N_t=6), device='cpu')\n"
         "s = h.solve(SolverConfig(method='woodbury', use_pallas=True, polish=1))\n"
         "assert h.relative_residual_f64(s) < 1e-10\n"
+        "s = h.solve(SolverConfig(method='gmres', rtol=1e-10))\n"
+        "assert h.relative_residual_f64(s) < 1e-8\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'optimal_control_paradiag_tpu')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -133,14 +139,14 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize(
     "cls,cfg,solver",
     [
-        (WaveControlProblem, reference_1d_default(), SolverConfig()),
+        (WaveControlProblem, ProblemConfig(N_x=6, N_t=6, dim=2), SolverConfig()),
         (WaveControlProblem, reference_1d_default(), SolverConfig(method="minres")),
         (WaveControlProblem, reference_1d_default(), SolverConfig(method="spectral")),
         (WaveControlProblem, reference_1d_default(), SolverConfig(method="direct")),
-        (HeatControlProblem, reference_1d_default(), SolverConfig(method="gmres")),
+        (WaveControlProblem, reference_1d_default(), SolverConfig(inner="cocg_jacobi")),
         (WaveControlProblem, ProblemConfig(N_x=6, N_t=6, dim=2), SolverConfig(method="woodbury")),
     ],
-    ids=["gmres", "minres", "spectral", "direct", "heat-gmres", "2d-consistent"],
+    ids=["gmres-2d-consistent", "minres", "spectral", "direct", "gmres-cocg-jacobi", "2d-consistent"],
 )
 def test_unported_paths_raise(cls, cfg, solver):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
