@@ -67,7 +67,24 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
 16. time the GMRES solves (device and host wall), one Arnoldi step, one
     ``fulldiag`` apply and one float64 matvec, and count the host
     synchronisations of a step and of a solve (torch's CUDA sync debug
-    mode, and a count of ``.cpu()``/``.item()``/``synchronize`` calls).
+    mode, and a count of ``.cpu()``/``.item()``/``synchronize`` calls);
+17. the transforms: the 'fft' and 'mxu4' DST against the matmul DST on
+    (2, 1024, 2047) and 2D (N_x = 256) states (float64 <= 1e-12, float32
+    <= 2e-5); the wave headline candidates of the JAX bench (B1 with the
+    packed FFT, plain 'fft', plain 'mxu', 'mxu4' with 'mxu') and B1 with the
+    FFT DST, without and with polish=1, each timed; the matmul-DST ones and
+    the polished one gated at 8e-4, the others (which miss it in the JAX
+    package too) at 1.6e-3; the DST and time round trips alone; heat 2D
+    lumped on B2 with the FFT DST; GMRES at the float64
+    headline with each DST (the ``fulldiag`` apply timed); ``'auto'`` past
+    the 64 MB matrix budget (N_x = 4096, float64) takes the FFT;
+18. the CLI (``optimal_control_paradiag_torch.run.main``): the reference's
+    default run on the card and the CPU (5 iterations each, the same
+    ``error_aligned_metric``), the heat headline in float64, the wave
+    direct solve at N_x = 4096, and the float64 GMRES headline under
+    ``--profile``, whose ``torch.profiler`` trace is read back into the
+    ``gmres_profile`` line (window, the device's busy share, the top device
+    ops, the longest idle gaps and the host op over each).
 
 It prints one JSON line per timing, then the kernels line, and last the
 device line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -443,6 +460,333 @@ def gmres_phases(torch, smi, flush):
         _, syncs[name] = count_syncs(torch, timings[name])
     print(json.dumps({"phase": "gmres_host_syncs", "k": k, "iterations": {"wave": g_its, "heat_1d": heat_gm["1d"][1],
                       "heat_2d": heat_gm["2d"][1]}, "restart": restart, **syncs}), flush=True)
+    return None
+
+
+# past the 64 MB matrix budget of dst_method='auto' in float64 (n1d > 2896)
+PAST_BUDGET = dict(N_x=4096, N_t=256)
+# The float32 'fft' and 'mxu4' sine transforms put the headline's residual
+# above the bench gate at refine = 1, in the JAX package as in the port
+# (tests/test_torch_transforms.py holds the two to each other): the inverse
+# transform's rounding, which spectral refinement cannot see and polish=1
+# removes. Those candidates are held to twice the gate, and B1 with the FFT
+# DST and polish=1 to the gate itself.
+TRANSFORM_DST_MAX_REL_RESIDUAL = 2 * MAX_REL_RESIDUAL
+DST_TOL = {"float64": 1e-12, "float32": 2e-5}  # fft/mxu4 vs matmul DST (tests/test_transforms.py:72)
+HEAT_CLI_MAX_REL_RESIDUAL = 1e-10  # tests/test_tools.py:159, float64
+WOODBURY_F64_MAX_RESIDUAL = 1e-8  # residual_norm_true / ||b|| of a float64 direct solve
+
+
+def dst_matrix_extended(N_x: int):
+    """The DST-I matrix ``sin(pi i j / N_x)`` in numpy longdouble, its angles
+    reduced exactly (``i j mod 2 N_x`` in integers) before the multiply by pi."""
+    import numpy as np
+
+    i = np.arange(1, N_x)
+    pi = np.arccos(np.longdouble(-1))
+    return np.sin(pi * (np.outer(i, i) % (2 * N_x)).astype(np.longdouble) / N_x)
+
+
+def transform_phases(torch, smi, flush, headline):
+    """Phase 17: the DST methods ('matmul', 'fft', 'mxu4') and the time
+    transforms ('fft2', 'fft', 'mxu') on the card: accuracy, the wave
+    headline candidates of the JAX bench (``bench.py:949-963``) plus B1 with
+    the FFT DST, the heat 2D solve on B2 with the FFT DST, GMRES in float64
+    with each DST, and 'auto' past the 64 MB budget. ``headline`` holds the
+    main path's solve ms and residual (phases 4-5). Prints one JSON line per
+    result; returns None, or what failed."""
+    import numpy as np
+
+    from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, SolverConfig, WaveControlProblem
+    from optimal_control_paradiag_torch.fem.space import make_space
+    from optimal_control_paradiag_torch.models.wave import WaveSolution
+    from optimal_control_paradiag_torch.ops.transforms import (
+        FourStepPlan,
+        time_irfft_conj_mm4,
+        time_irfft_conj_packed,
+        time_rfft_conj_mm4,
+        time_rfft_conj_packed,
+    )
+    from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
+    from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
+    from optimal_control_paradiag_torch.paradiag.pc import build_preconditioner
+    from optimal_control_paradiag_torch.paradiag.spectral import build_woodbury_solver
+
+    def timed(name, fn, **extra):
+        med, lo, hi = device_ms(torch, fn, flush)
+        print(json.dumps({"timing": name, "clock": "device", "l2": "cold", "median_ms": med, "min_ms": lo,
+                          "max_ms": hi, "runs": RUNS, "card": smi, **extra}), flush=True)
+        return med
+
+    # 17a. accuracy of the fft and mxu4 DST against the matmul DST
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    for dtype, name in ((torch.float64, "float64"), (torch.float32, "float32")):
+        for dim, N_x, N_t in ((1, N_X, N_T), (2, 256, 64)):
+            spaces = {m: make_space(dim, N_x, mass="lumped" if dim == 2 else "consistent", dtype=dtype,
+                                    device=DEVICE, dst_method=m) for m in ("matmul", "fft", "mxu4")}
+            n = spaces["matmul"].n
+            x = torch.from_numpy(rng.standard_normal((2, N_t, n))).to(dtype).to(DEVICE)
+            cases = [("real", x)]
+            if dim == 1:
+                cases.append(("complex", torch.complex(x, torch.roll(x, 1, dims=1))))
+            for kind, v in cases:
+                ref = spaces["matmul"].dst(v)
+                for m in ("fft", "mxu4"):
+                    err = rel_err(torch, spaces[m].dst(v), ref)
+                    print(json.dumps({"phase": "dst_accuracy", "method": m, "dtype": name, "dim": dim, "N_x": N_x,
+                                      "shape": list(v.shape), "input": kind, "rel_max_abs_err_vs_matmul": err,
+                                      "tol": DST_TOL[name]}), flush=True)
+                    if not err <= DST_TOL[name]:
+                        return f"dst_method={m!r} {name} {dim}D {kind}: {err:.3e} from the matmul DST"
+            if dim == 1 and name == "float64":
+                # each method against the DST in extended precision (numpy
+                # longdouble) on 16 rows, and the float64 sine matrix's own
+                # error: its angles pi*i*j/N_x, formed in float64, reach 6400
+                V = dst_matrix_extended(N_x)
+                rows = x[0, :16]
+                exact = rows.cpu().numpy().astype(np.longdouble) @ V
+                scale = float(np.abs(exact).max())
+                ext = {m: float(np.abs(sp.dst(rows).cpu().numpy() - exact).max()) / scale
+                       for m, sp in spaces.items()}
+                v_err = float(np.abs(spaces["matmul"].dst_matrix.cpu().numpy() - V).max())
+                print(json.dumps({"phase": "dst_accuracy_vs_extended", "dtype": name, "N_x": N_x, "rows": 16,
+                                  "rel_max_abs_err": ext, "dst_matrix_max_abs_err": v_err,
+                                  "longdouble_eps": float(np.finfo(np.longdouble).eps)}), flush=True)
+            del spaces, x, cases, ref
+
+    # 17b. the wave headline candidates (float32, refine = 1)
+    rhs = None
+    cands = {}
+    for dst_method in ("matmul", "fft", "mxu4"):
+        wp = WaveControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float32, dst_method=dst_method),
+                                device=DEVICE)
+        rhs = wp.rhs
+        timed(f"dst_{dst_method}_f32", lambda sp=wp.space: sp.dst(rhs), dst_method=dst_method,
+              shape=list(rhs.shape))
+        if dst_method == "matmul":
+            s = wp.space.dst(rhs)
+            plan4 = FourStepPlan(N_T, torch.float32, device=DEVICE)
+            timed("time_roundtrip_fft2", lambda: time_irfft_conj_packed(time_rfft_conj_packed(s, N_T), N_T))
+            timed("time_roundtrip_fft", lambda: torch.fft.irfft(torch.fft.rfft(s, dim=1), n=N_T, dim=1))
+            timed("time_roundtrip_mxu", lambda: time_irfft_conj_mm4(time_rfft_conj_mm4(s, plan4), plan4))
+            for tt in ("fft", "mxu"):
+                cands[f"plain_{tt}"] = (wp, build_woodbury_solver(wp.operator, time_transform=tt))
+            # B1 between two real rffts instead of the packed FFT (pack_fft=False)
+            cands["cuda_kernel_rfft_dst_matmul"] = (wp, cw.build_cuda_woodbury_solver(wp.operator, pack_fft=False))
+        elif dst_method == "fft":
+            cands["cuda_kernel_dst_fft"] = (wp, wp.make_solver_fn(SolverConfig(method="woodbury", use_pallas=True)))
+            cands["cuda_kernel_dst_fft_polish1"] = (
+                wp, wp.make_solver_fn(SolverConfig(method="woodbury", use_pallas=True, polish=1)))
+        else:
+            cands["plain_mxu4_mxu"] = (wp, build_woodbury_solver(wp.operator, time_transform="mxu"))
+    print(json.dumps({"phase": "wave_headline_candidate", "name": "cuda_kernel_packed_fft_dst_matmul",
+                      "ms": headline["ms"], "relative_residual_f64": headline["rel"], "gate": MAX_REL_RESIDUAL,
+                      "source": "phases 4-5"}), flush=True)
+    for name, (wp, fn) in cands.items():
+        direct = fn if name.startswith(("plain", "cuda_kernel_rfft")) else (lambda b, f=fn: f(b)[0])
+        before = cw.fused_woodbury.launches
+        x = direct(wp.rhs)
+        torch.cuda.synchronize()
+        launches = cw.fused_woodbury.launches - before
+        u, p = wp._unscale(x)
+        rel = wp.relative_residual_f64(WaveSolution(u=u, p=p, result=None))
+        med = timed(f"wave_solve_{name}", lambda f=direct, b=wp.rhs: f(b))
+        polished = name.endswith("polish1")
+        gate = TRANSFORM_DST_MAX_REL_RESIDUAL if wp.space.dst_method != "matmul" and not polished else MAX_REL_RESIDUAL
+        print(json.dumps({"phase": "wave_headline_candidate", "name": name, "dst_method": wp.space.dst_method,
+                          "ms": med, "relative_residual_f64": rel, "gate": gate,
+                          "meets_bench_gate": rel <= MAX_REL_RESIDUAL, "b1_launches": launches}), flush=True)
+        if not rel <= gate:
+            return f"wave headline candidate {name}: residual {rel:.3e} > {gate}"
+        if name.startswith("cuda") and launches < 1:
+            return f"wave headline candidate {name} did not launch B1"
+    del cands, wp, x, u, p, rhs, s
+
+    # 17c. heat 2D lumped on B2 with the FFT DST (float32)
+    hp = HeatControlProblem(ProblemConfig(**HEAT_2D, dtype=torch.float32, dst_method="fft"), device=DEVICE)
+    hfn = ch.build_cuda_heat_solver(hp)
+    before = ch.fused_heat.launches
+    hsol = hp.solve(SolverConfig(method="woodbury", use_pallas=True))
+    torch.cuda.synchronize()
+    hl = ch.fused_heat.launches - before
+    hrel = hp.relative_residual_f64(hsol)
+    hms = timed("heat_2d_solve_cuda_kernel_dst_fft", lambda: hfn(hp.rhs))
+    timed("heat_2d_dst_fft", lambda: hp.space.dst(hp.rhs))
+    print(json.dumps({"phase": "heat_2d_dst_fft", **HEAT_2D, "dtype": "float32", "ms": hms, "b2_launches": hl,
+                      "relative_residual_f64": hrel, "gate": HEAT_MAX_REL_RESIDUAL}), flush=True)
+    if hl < 1 or not hrel <= HEAT_MAX_REL_RESIDUAL:
+        return f"heat 2D with the FFT DST: {hl} B2 launches, residual {hrel:.3e}"
+    del hp, hfn, hsol
+
+    # 17d. GMRES, float64 headline, left side, rtol 1e-8, by DST method; and
+    # the matmul with its sine matrix formed from exactly reduced angles
+    # (measurement only: the port builds the matrix as the JAX package does)
+    gits = {}
+    for dst_method in ("matmul", "fft", "mxu4", "matmul_exact_matrix"):
+        gp = WaveControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float64,
+                                              dst_method=dst_method.replace("_exact_matrix", "")), device=DEVICE)
+        if dst_method == "matmul_exact_matrix":
+            gp.space.__dict__["dst_matrix"] = torch.from_numpy(dst_matrix_extended(N_X).astype(np.float64)).to(DEVICE)
+        gsol = gp.solve(SolverConfig(rtol=1e-8))
+        its, conv, grel = int(gsol.result.iterations), bool(gsol.result.converged), gp.relative_residual_f64(gsol)
+        gits[dst_method] = its
+        pc = build_preconditioner(gp.operator)
+        apply_ms = timed(f"gmres_fulldiag_pc_apply_dst_{dst_method}", lambda: pc(gp.rhs))
+        dst_ms = timed(f"dst_{dst_method}_f64", lambda: gp.space.dst(gp.rhs))
+        solve = gp.make_solver_fn(SolverConfig(rtol=1e-8))
+        solve_ms = timed(f"gmres_wave_headline_solve_dst_{dst_method}", lambda: solve(gp.rhs))
+        hist = gsol.result.residual_history.numpy()
+        print(json.dumps({"phase": "gmres_headline_dst", "dst_method": dst_method, "iterations": its,
+                          "iterations_matmul": gits["matmul"], "converged": conv, "relative_residual_f64": grel,
+                          "gate": GMRES_HEADLINE_MAX_REL_RESIDUAL, "fulldiag_apply_ms": apply_ms,
+                          "dst_ms": dst_ms, "solve_ms": solve_ms,
+                          "residual_history_relative": (hist[: its + 1] / hist[0]).tolist()}), flush=True)
+        if not (conv and grel <= GMRES_HEADLINE_MAX_REL_RESIDUAL):
+            return f"GMRES headline with dst_method={dst_method!r}: converged {conv}, residual {grel:.3e}"
+        del gp, gsol, pc, solve
+
+    # 17e. 'auto' past the 64 MB budget takes the FFT sine transform
+    big = make_space(1, PAST_BUDGET["N_x"], dtype=torch.float64, device=DEVICE)
+    v = torch.from_numpy(rng.standard_normal((2, 8, big.n))).to(DEVICE)
+    mxu4 = make_space(1, PAST_BUDGET["N_x"], dtype=torch.float64, device=DEVICE, dst_method="mxu4")
+    err = rel_err(torch, big.dst(v), mxu4.dst(v))
+    picked = "fft" if big._use_fft_dst else "matmul"
+    print(json.dumps({"phase": "dst_auto_past_budget", "N_x": PAST_BUDGET["N_x"], "dtype": "float64", "picked": picked,
+                      "matrix_built": "dst_matrix" in big.__dict__, "rel_max_abs_err_vs_mxu4": err,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    if picked != "fft" or "dst_matrix" in big.__dict__ or not err <= DST_TOL["float64"]:
+        return f"P1Space(N_x={big.N_x}, float64) with 'auto' took {picked} (error {err:.3e} vs mxu4)"
+    return None
+
+
+def trace_summary(path: str, top: int = 5) -> dict:
+    """Read a Chrome trace of ``torch.profiler``: the window (first to last
+    event), the device's busy share (union of kernel, memcpy and memset
+    intervals over the window) overall and in each StageTimer range, the
+    device ops with the most total time, and the longest idle gaps between
+    device work, each with the host op (``cpu_op`` or ``cuda_runtime``)
+    that overlaps it most."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+    if not any(e.get("cat") == "kernel" for e in dev):
+        raise RuntimeError(f"{path} holds no GPU kernel event: the profiler did not trace the card")
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy = []  # union of the device intervals
+    for e in dev:
+        a, b = e["ts"], e["ts"] + e["dur"]
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+
+    def busy_in(a, b):
+        return sum(max(0.0, min(b, y) - max(a, x)) for x, y in busy)
+
+    stages = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "user_annotation"}
+    per_op = collections.defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        per_op[e["name"]][0] += e["dur"]
+        per_op[e["name"]][1] += 1
+    host = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime")]
+
+    def idle_gaps(lo, hi):
+        """The longest gaps between device work inside [lo, hi], each with
+        the host op that overlaps it most (its share of the gap: the rest
+        is host time no traced op covers, i.e. Python)."""
+        inner = [(max(lo, x[1]), min(hi, y[0])) for x, y in zip(busy, busy[1:]) if x[1] < hi and y[0] > lo]
+        out = []
+        for a, b in sorted(inner, key=lambda ab: ab[0] - ab[1])[:top]:
+            over = [(min(b, e["ts"] + e["dur"]) - max(a, e["ts"]), -e["dur"], e) for e in host
+                    if e["ts"] < b and e["ts"] + e["dur"] > a]
+            ov, _, e = max(over, key=lambda o: o[:2]) if over else (0.0, 0, {})
+            out.append({"gap_ms": (b - a) / 1e3, "host_op": e.get("name"), "host_cat": e.get("cat"),
+                        "host_op_ms": e.get("dur", 0.0) / 1e3, "overlap_share": ov / (b - a) if b > a else None})
+        return out
+
+    return {
+        "window_ms": (t1 - t0) / 1e3,
+        "device_busy_ms": busy_in(t0, t1) / 1e3,
+        "device_busy_share": busy_in(t0, t1) / (t1 - t0),
+        "stages": {k: {"ms": (b - a) / 1e3, "device_busy_share": busy_in(a, b) / (b - a),
+                       "longest_idle_gaps": idle_gaps(a, b)} for k, (a, b) in stages.items()},
+        "device_events": len(dev),
+        "top_device_ops": [{"name": k[:160], "total_ms": v[0] / 1e3, "launches": v[1]}
+                           for k, v in sorted(per_op.items(), key=lambda kv: -kv[1][0])[:top]],
+        "longest_idle_gaps": idle_gaps(t0, t1),
+    }
+
+
+def cli_phases(torch, smi):
+    """Phase 18: the CLI (``python -m optimal_control_paradiag_torch.run``),
+    called in-process with ``--out`` in a temporary directory: the
+    reference's default run on the card and on the CPU, the heat headline,
+    the wave direct solve past the DST budget, and the float64 GMRES
+    headline under ``--profile`` with its trace read back. Prints one JSON
+    line per run; returns None, or what failed."""
+    import contextlib
+    import io
+    import tempfile
+
+    from optimal_control_paradiag_torch import ProblemConfig, WaveControlProblem
+    from optimal_control_paradiag_torch.run import main as cli
+
+    def run(argv, out):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = cli(argv + ["--out", out])
+        rec = {k: v for k, v in rec.items() if k != "config"}
+        return rec, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 18a. the reference's default run, card and CPU
+        recs = {}
+        for platform in ("auto", "cpu"):
+            out = os.path.join(tmp, f"ref_{platform}")
+            rec, secs = run(["--nx", "80", "--nt", "81", "--rtol", "1e-8", "--platform", platform], out)
+            files = {f: os.path.exists(os.path.join(out, f)) for f in ("solution.npz", "residuals.out")}
+            recs[platform] = rec
+            print(json.dumps({"phase": "cli_reference_default", "platform": platform, **rec, "files": files,
+                              "seconds": secs}), flush=True)
+            if not (rec["converged"] and rec["iterations"] == 5 and rec["residual_norm_true"] < 1e-8
+                    and all(files.values())):
+                return f"CLI default run on --platform {platform}: {rec}, files {files}"
+        da = abs(recs["auto"]["error_aligned_metric"] - recs["cpu"]["error_aligned_metric"])
+        if not da <= ERROR_ALIGNED_TOL:
+            return f"CLI error_aligned_metric differs between card and CPU by {da:.3e}"
+
+        # 18b. heat at its headline, float64
+        rec, secs = run(["--model", "heat", "--method", "woodbury", "--nx", str(HEAT_1D["N_x"]),
+                         "--nt", str(HEAT_1D["N_t"])], os.path.join(tmp, "heat"))
+        print(json.dumps({"phase": "cli_heat_headline", **rec, "gate": HEAT_CLI_MAX_REL_RESIDUAL,
+                          "seconds": secs}), flush=True)
+        if not rec["relative_residual"] <= HEAT_CLI_MAX_REL_RESIDUAL:
+            return f"CLI heat headline residual {rec['relative_residual']:.3e}"
+
+        # 18c. the wave direct solve past the DST matrix budget ('auto' -> fft)
+        rec, secs = run(["--nx", str(PAST_BUDGET["N_x"]), "--nt", str(PAST_BUDGET["N_t"]), "--method", "woodbury"],
+                        os.path.join(tmp, "big"))
+        bnorm = float(torch.linalg.norm(WaveControlProblem(ProblemConfig(**PAST_BUDGET), device=DEVICE).rhs))
+        print(json.dumps({"phase": "cli_woodbury_past_budget", **rec, "rhs_norm": bnorm,
+                          "gate": WOODBURY_F64_MAX_RESIDUAL * bnorm, "seconds": secs}), flush=True)
+        if not rec["residual_norm_true"] <= WOODBURY_F64_MAX_RESIDUAL * bnorm:
+            return f"CLI woodbury N_x=4096 residual {rec['residual_norm_true']:.3e} (||b|| = {bnorm:.3e})"
+
+        # 18d. the float64 GMRES headline under --profile
+        prof = os.path.join(tmp, "prof")
+        rec, secs = run(["--nx", str(N_X), "--nt", str(N_T), "--rtol", "1e-8", "--profile", prof],
+                        os.path.join(tmp, "gmres"))
+        print(json.dumps({"phase": "cli_gmres_headline_profiled", **rec, "seconds": secs,
+                          "trace_mb": os.path.getsize(os.path.join(prof, "trace.json")) / 2**20}), flush=True)
+        if not rec["converged"]:
+            return f"CLI GMRES headline under --profile did not converge: {rec}"
+        summary = trace_summary(os.path.join(prof, "trace.json"))
+        print(json.dumps({"phase": "gmres_profile", "N_x": N_X, "N_t": N_T, "dtype": "float64",
+                          "iterations": rec["iterations"], "card": smi, **summary}), flush=True)
+        if not summary["top_device_ops"]:
+            return "the GMRES trace lists no device op"
     return None
 
 
@@ -888,6 +1232,12 @@ def main() -> int:
         "streaming_ms_2d": ms["heat_2d_kernel_streaming"],
     }
     err = gmres_phases(torch, smi, flush)
+    if err:
+        return fail(err)
+    err = transform_phases(torch, smi, flush, {"ms": ms["solve_cuda_kernel"], "rel": wave_rel})
+    if err:
+        return fail(err)
+    err = cli_phases(torch, smi)
     if err:
         return fail(err)
 

@@ -26,8 +26,15 @@ inner solvers of ``paradiag/inner.py``; the heat family's
 
     WaveControlProblem(reference_1d_default()).solve(SolverConfig(rtol=1e-8))
 
+The sine transform is the dense matmul, the FFT or its four-step matmul
+factorization (``ProblemConfig.dst_method``), the time transforms
+``torch.fft`` (plain or packed), a DFT matmul or the four-step factorization
+(``ops/transforms.py``). The CLI driver is ``python -m
+optimal_control_paradiag_torch.run`` (``run.py``; writers in ``io/``, timers,
+monitor and checkpoints in ``utils/``, plots in ``viz/``).
+
 Entry points run on the card (``device='cuda'``) unless the caller passes
-``device='cpu'``.
+``device='cpu'`` (the CLI: ``--platform cpu``).
 """
 
 from optimal_control_paradiag_torch.config import (

@@ -33,8 +33,8 @@ class ProblemConfig:
         JAX package 'high' is the bf16x3 matmul (valid with polish); torch's
         'high' is TF32, a different algorithm, so the port raises for it.
       dst_method: sine-transform algorithm, 'auto' | 'matmul' | 'fft' |
-        'mxu4'. The port implements the matmul ('auto' up to the 64 MB
-        matrix budget) and raises for the rest.
+        'mxu4' ('auto': the matmul up to the 64 MB matrix budget, then the
+        FFT, the JAX package's rule).
     """
 
     N_x: int

@@ -9,11 +9,13 @@ sine transform that diagonalizes both.
 2D (Friedrichs-Keller): stiffness the 5-point stencil; consistent mass
 h^2/12 {centre 6; E, W, N, S, NE, SW 1}; lumped mass h^2 I.
 
-The sine transform is a dense matmul with the symmetric DST-I matrix in
-strict float32 (or float64): the direct solve does not survive a
-reduced-precision transform (``config.py`` of the JAX package records a
-relative residual of 0.129 with bf16x3 on the DST alone), so the solver
-builders call :func:`require_full_fp32_matmul` before they build anything.
+The sine transform (``dst_method``) is a dense matmul with the symmetric
+DST-I matrix, the odd-extension FFT identity, or its four-step matmul
+factorization, each in strict float32 (or float64): the direct solve does
+not survive a reduced-precision transform (``config.py`` of the JAX package
+records a relative residual of 0.129 with bf16x3 on the DST alone), so the
+solver builders call :func:`require_full_fp32_matmul` before they build
+anything.
 """
 
 from __future__ import annotations
@@ -95,11 +97,6 @@ class P1Space:
     dst_precision: str = "highest"
 
     def __post_init__(self):
-        if self.dst_method in ("fft", "mxu4"):
-            raise NotImplementedError(
-                f"dst_method={self.dst_method!r} is not ported yet (ROADMAP Queue A "
-                "item 1, deferred transforms); use 'matmul' or 'auto'"
-            )
         if self.dst_precision != "highest":
             raise NotImplementedError(
                 "dst_precision='high' is not ported yet (ROADMAP Queue A, deferred "
@@ -220,19 +217,61 @@ class P1Space:
         V = np.sin(np.pi * np.outer(i, i) / self.N_x)
         return to_device(V, self.dtype, self.device)
 
-    def _check_matmul_dst(self) -> None:
-        itemsize = np_dtype(self.dtype).itemsize
-        if self.n1d * self.n1d * itemsize > _DST_MATMUL_BUDGET_BYTES:
-            raise NotImplementedError(
-                f"n1d={self.n1d}: the dense DST matrix exceeds the 64 MB budget "
-                "where dst_method='auto' switches to the FFT sine transform, which "
-                "is not ported yet (ROADMAP Queue A item 1, deferred transforms)"
-            )
+    @property
+    def _use_fft_dst(self) -> bool:
+        """``dst_method='fft'``, or ``'auto'`` past the dense matrix budget:
+        the JAX package's rule (64 MB for the n1d^2 matrix, so the cutover
+        is dtype-aware: float32 n1d > 4096, float64 n1d > 2896)."""
+        if self.dst_method == "fft":
+            return True
+        if self.dst_method == "matmul":
+            return False
+        return self.n1d * self.n1d * np_dtype(self.dtype).itemsize > _DST_MATMUL_BUDGET_BYTES
+
+    def _dst_fft_lastaxis(self, x: torch.Tensor) -> torch.Tensor:
+        """DST-I along the last axis via the odd-extension FFT identity:
+        fft([0, x, 0, -reverse(x)])_k = -2i DST(x)_k, length 2 N_x. Real
+        inputs take the rfft half spectrum (the bins 1..n1d all sit in it)."""
+        z = x.new_zeros(x.shape[:-1] + (1,))
+        ext = torch.cat([z, x, z, -torch.flip(x, dims=(-1,))], dim=-1)
+        if not x.is_complex():
+            F = torch.fft.rfft(ext, dim=-1)
+            return (0.5j * F[..., 1 : self.n1d + 1]).real.to(x.dtype)
+        F = torch.fft.fft(ext, dim=-1)
+        return 0.5j * F[..., 1 : self.n1d + 1]
+
+    @functools.cached_property
+    def _dst4_plan(self):
+        from optimal_control_paradiag_torch.ops.transforms import DstFourStepPlan
+
+        return DstFourStepPlan(self.N_x, self.dtype, device=self.device)
+
+    def _dst_mm4_lastaxis(self, x: torch.Tensor) -> torch.Tensor:
+        from optimal_control_paradiag_torch.ops.transforms import dst1_mm4
+
+        if x.is_complex():
+            return torch.complex(dst1_mm4(x.real, self._dst4_plan), dst1_mm4(x.imag, self._dst4_plan))
+        return dst1_mm4(x, self._dst4_plan)
+
+    def _dst_2d(self, x: torch.Tensor, lastaxis) -> torch.Tensor:
+        """A last-axis DST applied over both grid axes of a flat 2D state
+        (the second pass on the last two axes transposed)."""
+        g = lastaxis(x.reshape(x.shape[:-1] + self.grid_shape))
+        g = lastaxis(torch.swapaxes(g, -1, -2))
+        return torch.swapaxes(g, -1, -2).reshape(x.shape)
 
     def dst(self, x: torch.Tensor) -> torch.Tensor:
-        """Forward sine transform over the (flat) space axis, as matmuls with
-        the DST-I matrix (complex inputs: real and imaginary parts apart)."""
-        self._check_matmul_dst()
+        """Forward sine transform over the (flat) space axis, by
+        ``dst_method``: 'matmul' (and 'auto' up to the 64 MB budget), the
+        dense DST-I matrix in full precision (complex inputs: real and
+        imaginary parts apart); 'fft', the odd-extension identity on
+        ``torch.fft``; 'mxu4', the same identity with the length-2N_x FFT
+        factored into two radix-~sqrt(2 N_x) real matmul stages
+        (``ops.transforms.dst1_mm4``), O(N_x^1.5) flops per row."""
+        if self.dst_method == "mxu4":
+            return self._dst_mm4_lastaxis(x) if self.dim == 1 else self._dst_2d(x, self._dst_mm4_lastaxis)
+        if self._use_fft_dst:
+            return self._dst_fft_lastaxis(x) if self.dim == 1 else self._dst_2d(x, self._dst_fft_lastaxis)
         if x.is_complex():
             return torch.complex(self.dst(x.real), self.dst(x.imag))
         V = self.dst_matrix

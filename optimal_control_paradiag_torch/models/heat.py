@@ -242,7 +242,8 @@ class HeatControlProblem:
         float32. The per-(mode, wavenumber) diagonal is formed in working
         precision from its 1D factors, as the JAX package's jnp path does
         (the fused kernel packs it from the float64 plan instead).
-        ``time_transform``: 'fft2' (packed FFT, default) or 'fft'."""
+        ``time_transform``: 'fft2' (packed FFT, default), 'fft', 'dft' or
+        'mxu' (``paradiag.spectral.make_halfspectrum_transforms``)."""
         require_full_fp32_matmul()
         if layout is not None:
             _not_ported("the sharded Woodbury solve", "item 14")

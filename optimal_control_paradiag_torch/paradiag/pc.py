@@ -11,8 +11,8 @@ analogue of the all-at-once matrix (time stencils replaced by circulants):
            [ dt^2/sqrt(g) muM,  conj(L1) muM + c conj(L2) muK ]],  c = dt^2/2,
 
   solved by Cramer's rule with ``det = |a11|^2 + (dt^2/sqrt(g) muM)^2 > 0``,
-  robust where Lambda_2(k) ~ 0 (N_t divisible by 4). The transforms are
-  ``torch.fft`` (full spectrum, complex) and the port's matmul DST.
+  robust where Lambda_2(k) ~ 0 (N_t divisible by 4). The transforms are a
+  full-spectrum time transform and the space's DST (``dst_method``).
 
 'eig': the reference's 7-step apply: ifft over time, S^{-1} 2x2 mix,
   per-mode complex-shifted spatial solves ``(Sigma_i M + c K)``, S mix,
@@ -20,9 +20,11 @@ analogue of the all-at-once matrix (time stencils replaced by circulants):
   the sine-spectral inverse unless an ``inner_solver`` is given
   (``paradiag/inner.py``).
 
-The JAX package's other variants ('block', 'blockdense', 'blockline',
-'blockband'), its sharded ``layout`` and its DFT-matmul time transform are
-not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+The time transform is ``torch.fft`` or, with ``time_transform='dft'``, the
+real-matmul DFT of ``ops/transforms.py``. The JAX package's other variants
+('block', 'blockdense', 'blockline', 'blockband') and its sharded ``layout``
+are not ported yet and raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
+from optimal_control_paradiag_torch.ops import transforms
 from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator
 from optimal_control_paradiag_torch.paradiag.eigs import circulant_eigs
 from optimal_control_paradiag_torch.paradiag.inner import make_dst_inner_solver
@@ -63,20 +66,17 @@ def build_preconditioner(
     ``inner_solver(sigma, rhs)``, if given, overrides the per-mode spatial
     solve of the 'eig' variant: it receives per-mode complex shifts ``sigma``
     (N_t, 1) and right-hand sides (N_t, n) and returns the solutions of
-    ``(sigma_k M + dt^2/2 K) w_k = rhs_k``. ``time_transform``: 'fft' (the
-    only one ported). The JAX package's ``inner_tol`` and ``inner_maxiter``
-    belong to its 'block' variant, which is not ported.
+    ``(sigma_k M + dt^2/2 K) w_k = rhs_k``. ``time_transform``: 'fft'
+    (``torch.fft``, the default) or 'dft' (real-matmul DFT from
+    :mod:`ops.transforms`). The JAX package's ``inner_tol`` and
+    ``inner_maxiter`` belong to its 'block' variant, which is not ported.
     """
     if layout is not None:
         raise NotImplementedError(
             "the sharded preconditioner (layout) is not ported yet: ROADMAP Queue A item 14"
         )
     time_transform = "fft" if time_transform is None else time_transform
-    if time_transform == "dft":
-        raise NotImplementedError(
-            "time_transform='dft' is not ported yet: ROADMAP Queue A, deferred transforms"
-        )
-    if time_transform != "fft":
+    if time_transform not in ("fft", "dft"):
         raise ValueError(f"unknown time_transform {time_transform!r}")
     if not op.scaled:
         raise ValueError(
@@ -96,11 +96,22 @@ def build_preconditioner(
     e = circulant_eigs(op.N_t, op.dt, op.gamma)
     c = 0.5 * op.dt * op.dt
 
-    def ifft_t(r):
-        return torch.fft.ifft(r.to(cdtype), dim=1)
+    if time_transform == "dft":
+        Cm, Sm = transforms.dft_matrices(op.N_t, rdtype, dev)
 
-    def fft_t_real(y):
-        return torch.fft.fft(y, dim=1).real
+        def ifft_t(r):  # real input
+            return transforms.time_ifft_real_mm(r, Cm, Sm)
+
+        def fft_t_real(y):  # complex input -> real(fft(y))
+            return transforms.time_fft_real_part_mm(y, Cm, Sm)
+
+    else:
+
+        def ifft_t(r):
+            return torch.fft.ifft(r.to(cdtype), dim=1)
+
+        def fft_t_real(y):
+            return torch.fft.fft(y, dim=1).real
 
     if variant == "fulldiag":
         muM, muK = sp.spectrum

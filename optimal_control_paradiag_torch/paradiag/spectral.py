@@ -34,7 +34,10 @@ import torch
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
 from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator
 from optimal_control_paradiag_torch.ops.transforms import (
+    FourStepPlan,
+    time_irfft_conj_mm4,
     time_irfft_conj_packed,
+    time_rfft_conj_mm4,
     time_rfft_conj_packed,
 )
 from optimal_control_paradiag_torch.paradiag.eigs import circulant_eigs
@@ -211,6 +214,7 @@ def make_halfspectrum_transforms(
     space,
     N_t: int,
     rdtype,
+    layout=None,
     time_transform: str = "fft",
 ) -> Tuple[Callable, Callable]:
     """``(to_spectral, from_spectral)`` of the half-spectrum pipeline:
@@ -218,16 +222,52 @@ def make_halfspectrum_transforms(
         xi = conj(rfft(dst(x), axis=1)) / N_t        (2, K, n) complex
         x  = idst(irfft(conj(xi)) * N_t)             (2, N_t, n) real
 
-    ``time_transform``: 'fft' (two real rffts) or 'fft2' (one packed complex
-    FFT, ``ops.transforms.time_rfft_conj_packed``). The DST runs first, on
-    the real state."""
-    if time_transform in ("dft", "mxu"):
+    ``time_transform``: 'fft' (two real rffts), 'fft2' (one packed complex
+    FFT, ``ops.transforms.time_rfft_conj_packed``), 'dft' (the rfft/irfft
+    as split-real matmuls with K x N_t cos/sin matrices, the pairing weights
+    folded into the inverse's) or 'mxu' (the four-step factorization,
+    ``ops.transforms.FourStepPlan``; a prime N_t has no radix split and
+    falls back to 'fft', as in the JAX package). The DST runs first, on the
+    real state. Unknown names raise ``ValueError`` (the JAX package falls
+    back to 'fft'; ROADMAP Queue C)."""
+    if layout is not None:
         raise NotImplementedError(
-            f"time_transform={time_transform!r} is not ported yet (ROADMAP Queue A "
-            "item 2, deferred transforms); use 'fft' or 'fft2'"
+            "the sharded half-spectrum transforms (layout) are not ported yet: "
+            "ROADMAP Queue A item 14"
         )
     sp = space
-    if time_transform == "fft2":
+    dev = sp.device
+    if time_transform == "dft":
+        K = N_t // 2 + 1
+        wgt = pairing_weights(N_t)
+        ang = 2.0 * np.pi * np.outer(np.arange(K), np.arange(N_t)) / N_t
+        Cf = to_device(np.cos(ang) / N_t, rdtype, dev)
+        Sf = to_device(np.sin(ang) / N_t, rdtype, dev)
+        Ci = to_device(wgt[None, :] * np.cos(ang).T, rdtype, dev)
+        Si = to_device(wgt[None, :] * np.sin(ang).T, rdtype, dev)
+
+        def to_spectral(x):
+            s = sp.dst(x)
+            return torch.complex(torch.einsum("kt,ctn->ckn", Cf, s), torch.einsum("kt,ctn->ckn", Sf, s))
+
+        def from_spectral(xi):
+            t = torch.einsum("tk,ckn->ctn", Ci, xi.real) + torch.einsum("tk,ckn->ctn", Si, xi.imag)
+            return sp.idst(t).to(rdtype)
+
+    elif time_transform == "mxu":
+        try:
+            plan4 = FourStepPlan(N_t, rdtype, device=dev)
+        except ValueError:
+            # prime N_t has no radix split: the rfft path is the fallback
+            return make_halfspectrum_transforms(sp, N_t, rdtype, time_transform="fft")
+
+        def to_spectral(x):
+            return time_rfft_conj_mm4(sp.dst(x), plan4)
+
+        def from_spectral(xi):
+            return sp.idst(time_irfft_conj_mm4(xi, plan4)).to(rdtype)
+
+    elif time_transform == "fft2":
 
         def to_spectral(x):
             return time_rfft_conj_packed(sp.dst(x), N_t)
@@ -239,7 +279,10 @@ def make_halfspectrum_transforms(
 
         def to_spectral(x):
             s = sp.dst(x)
-            return torch.fft.rfft(s, dim=1).conj() * (1.0 / N_t)
+            # contiguous, as the packed transform returns it: the fused
+            # kernels read b_hat in that layout (cuFFT's rfft over dim 1
+            # returns a strided result)
+            return (torch.fft.rfft(s, dim=1).conj() * (1.0 / N_t)).contiguous()
 
         def from_spectral(xi):
             t = torch.fft.irfft(xi.conj(), n=N_t, dim=1) * float(N_t)
@@ -334,7 +377,9 @@ def build_woodbury_solver(
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Direct all-at-once solver ``b -> x`` via the rank-4 Woodbury identity
     in ParaDiag-diagonalized coordinates, on the half spectrum, in plain
-    PyTorch. ``time_transform`` defaults to the packed FFT ('fft2')."""
+    PyTorch. ``time_transform`` ('fft', 'fft2', 'dft' or 'mxu'; see
+    :func:`make_halfspectrum_transforms`) defaults to the packed FFT
+    ('fft2')."""
     require_full_fp32_matmul()
     if layout is not None:
         raise NotImplementedError(

@@ -40,6 +40,14 @@ def host_f64(t) -> np.ndarray:
     return np.asarray(t, dtype=np.float64)
 
 
+def host_array(t) -> np.ndarray:
+    """A tensor (on any device) or array as a host numpy array of its own
+    dtype: what the writers and checkpoints save."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
 def to_device(x, dtype, device) -> torch.Tensor:
     """Cast ``x`` to ``dtype`` in numpy, then copy it to ``device`` (always
     a copy: the tensor never shares memory with ``x``)."""

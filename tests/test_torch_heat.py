@@ -210,15 +210,18 @@ def test_default_device_is_cuda():
 
 def test_dst_method_is_passed_through():
     """The JAX heat problem drops ``dst_method`` (ROADMAP Queue C); the port
-    passes it to the space, and 'matmul' gives the 'auto' result."""
+    passes it to the space: 'matmul' gives the 'auto' result, and 'fft'
+    the same to 1e-11."""
     kw = dict(N_x=12, N_t=8)
     tp = HeatControlProblem(ProblemConfig(**kw, dst_method="matmul"), device="cpu")
     assert tp.space.dst_method == "matmul"
     ref = HeatControlProblem(ProblemConfig(**kw), device="cpu")
     solver = SolverConfig(method="woodbury", use_pallas=True)
     assert torch.equal(tp.solve(solver).u, ref.solve(solver).u)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HeatControlProblem(ProblemConfig(**kw, dst_method="fft"), device="cpu")
+    fft = HeatControlProblem(ProblemConfig(**kw, dst_method="fft"), device="cpu")
+    assert fft.space.dst_method == "fft"
+    x = fft.solve(solver).u
+    assert (x - ref.solve(solver).u).abs().max() <= 1e-11 * x.abs().max()
 
 
 @pytest.mark.parametrize(

@@ -3,8 +3,9 @@ method='woodbury', use_pallas=True))`` of the PyTorch port (device='cpu',
 where the fused solve runs the kernel's plain twin) vs the JAX package (its
 Pallas kernel in interpret mode), on identical inputs carried over by
 ``optimal_control_paradiag_torch.interop``. Also: the float32 dtype
-discipline, the port's independence from JAX, the CUDA default device, and
-the methods not ported yet.
+discipline, the port's independence from JAX (its solves, and its CLI run
+as ``python -m optimal_control_paradiag_torch.run``), the CUDA default
+device, and the methods not ported yet.
 
 Tolerances: u and p relative max-abs 1e-11; error_aligned 1e-10 absolute;
 the port's residual_norm / ||b|| below 1e-10; the two float64 residual
@@ -99,9 +100,9 @@ def test_float32_dtype_discipline():
     assert r_t <= 2.0 * r_j, (r_t, r_j)
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     code = (
-        "import sys, torch\n"
+        "import runpy, sys, torch\n"
         "from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, SolverConfig, WaveControlProblem\n"
         "import optimal_control_paradiag_torch.interop\n"
         "p = WaveControlProblem(ProblemConfig(N_x=8, N_t=6), device='cpu')\n"
@@ -116,14 +117,20 @@ def test_port_imports_no_jax():
         "assert h.relative_residual_f64(s) < 1e-10\n"
         "s = h.solve(SolverConfig(method='gmres', rtol=1e-10))\n"
         "assert h.relative_residual_f64(s) < 1e-8\n"
+        "import optimal_control_paradiag_torch.io.writers, optimal_control_paradiag_torch.viz.plotting\n"
+        "import optimal_control_paradiag_torch.utils.timing, optimal_control_paradiag_torch.utils.monitor\n"
+        "import optimal_control_paradiag_torch.utils.checkpoint\n"
+        "sys.argv = ['run', '--platform', 'cpu', '--nx', '8', '--nt', '9', '--rtol', '1e-8', '--out', sys.argv[1]]\n"
+        "runpy.run_module('optimal_control_paradiag_torch.run', run_name='__main__', alter_sys=True)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'optimal_control_paradiag_tpu')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+    assert '"iterations": ' in out.stdout and (tmp_path / "solution.npz").exists()
 
 
 def test_default_device_is_cuda():
