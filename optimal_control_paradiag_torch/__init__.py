@@ -26,6 +26,13 @@ inner solvers of ``paradiag/inner.py``; the heat family's
 
     WaveControlProblem(reference_1d_default()).solve(SolverConfig(rtol=1e-8))
 
+``method='minres'`` runs MINRES (``krylov/minres.py``) on the symmetrized
+system (``paradiag/symmetric.py``), ``method='spectral'`` GMRES in
+diagonalized coordinates and ``method='direct'`` a dense LU.
+``WaveControlProblem.make_batched_solver_fn`` solves a batch ``(B, 2, N_t,
+n)`` at once, every layer taking the leading axis; a batched kernel solve is
+one launch.
+
 The sine transform is the dense matmul, the FFT or its four-step matmul
 factorization (``ProblemConfig.dst_method``), the time transforms
 ``torch.fft`` (plain or packed), a DFT matmul or the four-step factorization

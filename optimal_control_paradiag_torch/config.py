@@ -74,7 +74,7 @@ class ProblemConfig:
 class SolverConfig:
     """Solver options; the same fields as the JAX package's ``SolverConfig``.
 
-    The port runs two methods:
+    Methods:
 
     - ``method='gmres'`` (the default, the reference's own algorithm):
       restarted GMRES (``restart``, ``rtol``, ``atol``, ``maxiter``,
@@ -87,10 +87,18 @@ class SolverConfig:
       rank 2 for the heat family, with ``refine`` spectral and ``polish``
       physical-space defect-correction steps; ``use_pallas=True`` routes it
       through the family's fused CUDA kernel (``paradiag/cuda_woodbury.py``,
-      ``paradiag/cuda_heat.py``).
+      ``paradiag/cuda_heat.py``);
+    - ``method='minres'``: MINRES (``rtol``, ``maxiter``) on the
+      block-row-swapped symmetric system, with the SPD absolute-value
+      preconditioner unless ``pc=None`` (wave; the heat family always uses
+      it, as the JAX package does);
+    - ``method='spectral'`` (wave): GMRES in ParaDiag-diagonalized
+      coordinates, preconditioned by the circulant block inverse;
+    - ``method='direct'``: dense LU of the assembled all-at-once matrix
+      (small problems).
 
-    The other methods and preconditioner variants are validated as in the
-    JAX package and raise ``NotImplementedError`` naming their ROADMAP item.
+    The preconditioner variants the port lacks are validated as in the JAX
+    package and raise ``NotImplementedError`` naming their ROADMAP item.
     """
 
     method: str = "gmres"

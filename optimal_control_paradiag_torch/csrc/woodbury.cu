@@ -83,6 +83,13 @@
 //
 // Layout. The complex state is torch.view_as_real of a contiguous (2, K, n)
 // complex tensor: [u|p][k][j][re|im], read and written as float2 / double2.
+//
+// Batch. A (B, 2, K, n) state is B independent solves (lanes) sharing the
+// constants, in one launch: the lanes ride the grid's y axis (blockIdx.y,
+// so B <= 65535), and a block offsets b and x by its lane's 2 K n complex
+// elements and does nothing else differently. Its schedule, shared memory
+// and arithmetic are those of the single solve, so lane i of a batched
+// launch is bitwise what a launch on lane i alone gives.
 
 #include <cuda_runtime.h>
 
@@ -90,7 +97,7 @@
 __device__ long long woodbury_profile[8192][8];
 #define PROFILE_MARK(i)                                                         \
   do {                                                                          \
-    if (threadIdx.x == 0 && blockIdx.x < 8192) woodbury_profile[blockIdx.x][i] = clock64(); \
+    if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.x < 8192) woodbury_profile[blockIdx.x][i] = clock64(); \
   } while (0)
 #else
 #define PROFILE_MARK(i) \
@@ -195,8 +202,9 @@ woodbury_streaming_kernel(const T* __restrict__ b, T* __restrict__ x,
   // Dead columns (j >= n) run no bins but join every block reduction.
   const int k_end = j < n ? K : 0;
   const size_t plane = (size_t)K * n;  // complex elements of the u (or p) plane
-  const V* bv = reinterpret_cast<const V*>(b);
-  V* xv = reinterpret_cast<V*>(x);
+  const size_t lane_off = (size_t)blockIdx.y * 2 * plane;  // this block's lane of the batch
+  const V* bv = reinterpret_cast<const V*>(b) + lane_off;
+  V* xv = reinterpret_cast<V*>(x) + lane_off;
 
   T m1 = T(0), kap1 = T(0), tm1 = T(0), mk1 = T(0);
   if (j < n) {
@@ -407,8 +415,9 @@ woodbury_slab_kernel(const T* __restrict__ b, T* __restrict__ x,
   const int j0 = blockIdx.x * cols;
   const int cshift = __ffs(cols) - 1;
   const size_t plane = (size_t)K * n;  // complex elements of the u (or p) plane
-  const V* bv = reinterpret_cast<const V*>(b);
-  V* xv = reinterpret_cast<V*>(x);
+  const size_t lane_off = (size_t)blockIdx.y * 2 * plane;  // this block's lane of the batch
+  const V* bv = reinterpret_cast<const V*>(b) + lane_off;
+  V* xv = reinterpret_cast<V*>(x) + lane_off;
 
   // Load sweep: the phase table in 16-byte pieces, then b and the three
   // constants of the block's columns, column index fastest; every copy is
@@ -563,14 +572,18 @@ woodbury_slab_kernel(const T* __restrict__ b, T* __restrict__ x,
 // ---------------------------------------------------------------------------
 // Launchers.
 
+// A batch the grid's y axis can hold.
+inline bool batch_ok(int batch) { return batch >= 1 && batch <= 65535; }
+
 template <typename T>
 int launch_streaming(const T* b, T* x, const T* a11r, const T* a11i, const T* invdet,
-                     const T* colc, const T* gc, const T* phases, int K, int n, int refine,
-                     int device, void* stream) {
+                     const T* colc, const T* gc, const T* phases, int K, int n, int batch,
+                     int refine, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (!batch_ok(batch)) return (int)cudaErrorInvalidValue;
   const dim3 block(TJ, KS);
-  const dim3 grid((n + TJ - 1) / TJ);
+  const dim3 grid((n + TJ - 1) / TJ, batch);
   woodbury_streaming_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
       b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine);
   return (int)cudaGetLastError();
@@ -579,7 +592,8 @@ int launch_streaming(const T* b, T* x, const T* a11r, const T* a11i, const T* in
 template <typename T, int L>
 cudaError_t launch_slab_lanes(const T* b, T* x, const T* a11r, const T* a11i, const T* invdet,
                               const T* colc, const T* gc, const T* phases, int K, int n,
-                              int refine, int cols, int ks, int smem, cudaStream_t stream) {
+                              int batch, int refine, int cols, int ks, int smem,
+                              cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         woodbury_slab_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -588,38 +602,38 @@ cudaError_t launch_slab_lanes(const T* b, T* x, const T* a11r, const T* a11i, co
       return err;
     }
   }
-  woodbury_slab_kernel<T, L><<<(n + cols - 1) / cols, cols * L, smem, stream>>>(
+  woodbury_slab_kernel<T, L><<<dim3((n + cols - 1) / cols, batch), cols * L, smem, stream>>>(
       b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, ks);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_slab(const T* b, T* x, const T* a11r, const T* a11i, const T* invdet, const T* colc,
-                const T* gc, const T* phases, int K, int n, int refine, int cols, int lanes,
-                int ks, int smem, int device, void* stream) {
+                const T* gc, const T* phases, int K, int n, int batch, int refine, int cols,
+                int lanes, int ks, int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool pow2 = cols >= 1 && cols <= 32 && (cols & (cols - 1)) == 0;
   const int threads = cols * lanes;
-  if (!pow2 || threads % 32 != 0 || threads > 256 || ks < K || smem < 0 ||
+  if (!batch_ok(batch) || !pow2 || threads % 32 != 0 || threads > 256 || ks < K || smem < 0 ||
       (size_t)smem < slab_bytes<T>(K, cols, lanes, ks))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (lanes) {
     case 8:
-      err = launch_slab_lanes<T, 8>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols, ks, smem, s);
+      err = launch_slab_lanes<T, 8>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, batch, refine, cols, ks, smem, s);
       break;
     case 16:
-      err = launch_slab_lanes<T, 16>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols, ks, smem, s);
+      err = launch_slab_lanes<T, 16>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, batch, refine, cols, ks, smem, s);
       break;
     case 32:
-      err = launch_slab_lanes<T, 32>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols, ks, smem, s);
+      err = launch_slab_lanes<T, 32>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, batch, refine, cols, ks, smem, s);
       break;
     case 64:
-      err = launch_slab_lanes<T, 64>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols, ks, smem, s);
+      err = launch_slab_lanes<T, 64>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, batch, refine, cols, ks, smem, s);
       break;
     case 128:
-      err = launch_slab_lanes<T, 128>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols, ks, smem, s);
+      err = launch_slab_lanes<T, 128>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, batch, refine, cols, ks, smem, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -630,7 +644,8 @@ int launch_slab(const T* b, T* x, const T* a11r, const T* a11i, const T* invdet,
 }  // namespace
 
 // Plain C interface for ctypes. Pointers are device pointers; the state b
-// and the output x are view_as_real of contiguous (2, K, n) complex tensors,
+// and the output x are view_as_real of contiguous (batch, 2, K, n) complex
+// tensors (1 <= batch <= 65535; the constants are shared by the lanes),
 // a11r / a11i / invdet are (K, n), colc is (4, n) [m1, kap1, tm1, mk1], gc is
 // (16, n) [G row-major], phases is (K, 16). The slab launchers add the
 // schedule: `cols` columns per block
@@ -644,34 +659,34 @@ extern "C" {
 
 int woodbury_streaming_f32(const float* b, float* x, const float* a11r, const float* a11i,
                            const float* invdet, const float* colc, const float* gc,
-                           const float* phases, int K, int n, int refine, int device,
+                           const float* phases, int K, int n, int batch, int refine, int device,
                            void* stream) {
-  return launch_streaming<float>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine,
+  return launch_streaming<float>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, batch, refine,
                                  device, stream);
 }
 
 int woodbury_streaming_f64(const double* b, double* x, const double* a11r, const double* a11i,
                            const double* invdet, const double* colc, const double* gc,
-                           const double* phases, int K, int n, int refine, int device,
+                           const double* phases, int K, int n, int batch, int refine, int device,
                            void* stream) {
-  return launch_streaming<double>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine,
+  return launch_streaming<double>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, batch, refine,
                                   device, stream);
 }
 
 int woodbury_slab_f32(const float* b, float* x, const float* a11r, const float* a11i,
                       const float* invdet, const float* colc, const float* gc,
-                      const float* phases, int K, int n, int refine, int cols, int lanes,
-                      int ks, int smem_bytes, int device, void* stream) {
-  return launch_slab<float>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols,
+                      const float* phases, int K, int n, int batch, int refine, int cols,
+                      int lanes, int ks, int smem_bytes, int device, void* stream) {
+  return launch_slab<float>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, batch, refine, cols,
                             lanes, ks, smem_bytes, device, stream);
 }
 
 int woodbury_slab_f64(const double* b, double* x, const double* a11r, const double* a11i,
                       const double* invdet, const double* colc, const double* gc,
-                      const double* phases, int K, int n, int refine, int cols, int lanes,
-                      int ks, int smem_bytes, int device, void* stream) {
-  return launch_slab<double>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, refine, cols,
-                             lanes, ks, smem_bytes, device, stream);
+                      const double* phases, int K, int n, int batch, int refine, int cols,
+                      int lanes, int ks, int smem_bytes, int device, void* stream) {
+  return launch_slab<double>(b, x, a11r, a11i, invdet, colc, gc, phases, K, n, batch, refine,
+                             cols, lanes, ks, smem_bytes, device, stream);
 }
 
 const char* woodbury_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

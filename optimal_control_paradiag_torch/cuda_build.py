@@ -102,25 +102,37 @@ def load_library(source: str) -> BuiltLibrary:
         return built
 
 
+# The lanes of a batched launch ride the grid's y axis (gridDim.y <= 65535).
+MAX_BATCH = 65535
+
+
 def launch_fused_solve(name: str, fns, error_string, b_hat, consts, shapes, refine: int, extra=()):
     """Check the arguments of a fused half-spectrum solve and launch it.
 
-    ``b_hat`` must be a contiguous, resolved (2, K, n) complex CUDA tensor,
-    each constant (a field of the ``consts`` dataclass named in ``shapes``,
-    in the kernel's argument order) contiguous, of the matching real dtype,
-    on the same device and of its shape, with K, n taken from the first
-    constant; ``refine`` a non-negative int. ``fns`` maps the real dtype to
-    the ctypes launcher, ``error_string`` turns its return code into text;
-    ``extra`` ints (a kernel's schedule) follow ``refine`` in the launcher's
-    arguments. Returns x, the (2, K, n) output; a refused or failed launch
-    raises."""
+    ``b_hat`` must be a contiguous, resolved (2, K, n) or (B, 2, K, n)
+    complex CUDA tensor, 1 <= B <= :data:`MAX_BATCH` (the lanes ride the
+    grid's y axis and share the constants); each constant (a field of the
+    ``consts`` dataclass named in ``shapes``, in the kernel's argument order)
+    contiguous, of the matching real dtype, on the same device and of its
+    shape, with K, n taken from the first constant; ``refine`` a
+    non-negative int. ``fns`` maps the real dtype to the ctypes launcher,
+    ``error_string`` turns its return code into text; ``extra`` ints (a
+    kernel's schedule) follow ``refine`` in the launcher's arguments.
+    Returns x, of b_hat's shape: one launch for the whole batch; a refused
+    or failed launch raises."""
     real = {torch.complex64: torch.float32, torch.complex128: torch.float64}.get(b_hat.dtype)
     K, n = getattr(consts, next(iter(shapes))).shape
-    if real is None or b_hat.shape != (2, K, n) or not b_hat.is_contiguous() or b_hat.is_conj():
+    lane_shape = tuple(b_hat.shape[-3:])
+    batched = b_hat.dim() == 4
+    if (real is None or lane_shape != (2, K, n) or b_hat.dim() not in (3, 4) or not b_hat.is_contiguous()
+            or b_hat.is_conj()):
         raise ValueError(
-            f"b_hat must be a contiguous, resolved (2, {K}, {n}) complex tensor; "
+            f"b_hat must be a contiguous, resolved (2, {K}, {n}) or (B, 2, {K}, {n}) complex tensor; "
             f"got {tuple(b_hat.shape)} {b_hat.dtype}"
         )
+    batch = b_hat.shape[0] if batched else 1
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"a batched launch takes 1 to {MAX_BATCH} lanes (the grid's y axis); got B = {batch}")
     ptrs = []
     for field, shape in shapes.items():
         t = getattr(consts, field)
@@ -134,7 +146,7 @@ def launch_fused_solve(name: str, fns, error_string, b_hat, consts, shapes, refi
     x = torch.empty_like(b_hat)
     device = b_hat.device.index if b_hat.device.index is not None else torch.cuda.current_device()
     err = fns[real](
-        b_hat.data_ptr(), x.data_ptr(), *ptrs, K, n, refine, *extra, device,
+        b_hat.data_ptr(), x.data_ptr(), *ptrs, K, n, batch, refine, *extra, device,
         torch.cuda.current_stream(b_hat.device).cuda_stream,
     )
     if err != 0:

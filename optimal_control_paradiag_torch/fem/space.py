@@ -332,6 +332,20 @@ class P1Space:
         mt = (h * h / 12.0) * (6.0 + 2.0 * c[:, None] + 2.0 * c[None, :] + 2.0 * np.outer(c, c))
         return host_const(mt.ravel(), self.dtype)
 
+    # --------------------------------------------------------------- dense
+
+    def mass_dense(self) -> torch.Tensor:
+        """Dense interior mass matrix (test oracle / small direct solves)."""
+        return self._densify(self.apply_mass)
+
+    def stiffness_dense(self) -> torch.Tensor:
+        """Dense interior stiffness matrix (test oracle / small direct solves)."""
+        return self._densify(self.apply_stiffness)
+
+    def _densify(self, op) -> torch.Tensor:
+        eye = torch.eye(self.n, dtype=self.dtype, device=self.device)
+        return op(eye).T
+
 
 def make_space(
     dim: int,

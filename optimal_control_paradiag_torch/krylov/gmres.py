@@ -7,22 +7,25 @@ residual), ``side='right'`` converging on the true residual, classical
 Gram-Schmidt with one re-orthogonalisation (CGS2), restart cycles, and a
 residual history of length ``maxiter + 1``.
 
-The JAX package runs the whole solve as two nested ``lax.while_loop``s on the
-device. Here each Arnoldi step is split in three:
+:func:`gmres_batched` solves B systems in lock-step, the counterpart of the
+JAX package's ``jax.vmap`` of its ``gmres``; :func:`gmres`, one system, is
+its one-lane case. The JAX package runs the whole solve as two nested
+``lax.while_loop``s on the device. Here each Arnoldi step is split in three:
 
-1. on the device (:func:`arnoldi_step`): the operator, two projections onto
-   the active basis rows ``V[:k+1]`` and two expansions (matrix-vector
-   products in the working dtype, float32 in full FP32), the new basis row;
-2. one copy of the step's Hessenberg column (k + 2 numbers) to the host: the
-   step's only host synchronisation;
-3. on the host (:func:`givens_update`), in numpy in the working dtype and in
-   the JAX code's order of operations: the Givens rotations, the residual
-   estimate and the convergence test.
+1. on the device (:func:`arnoldi_step`), for every lane at once: the
+   operator, two projections onto the active basis rows ``V[:, :k+1]`` and
+   two expansions (batched matrix products in the working dtype, float32 in
+   full FP32), the new basis rows;
+2. one copy of the step's B Hessenberg columns (k + 2 numbers each) to the
+   host: the step's only host synchronisation;
+3. on the host (:func:`givens_update`), per lane, in numpy in the working
+   dtype and in the JAX code's order of operations: the Givens rotations,
+   the residual estimate and the convergence test.
 
-At the end of a cycle the k x k triangular system is solved on the host and
-the update ``y @ V[:k]`` runs on the device. Each cycle adds two more host
-synchronisations: the norm of its starting residual, and the copy of ``y``
-to the device.
+At the end of a cycle each lane's k x k triangular system is solved on the
+host and the updates ``y @ V[:k]`` run on the device. Each cycle adds two
+more host synchronisations: the norms of its starting residuals, and the
+copy of the ``y`` to the device.
 """
 
 from __future__ import annotations
@@ -89,20 +92,23 @@ def _givens(a, b):
 
 
 def arnoldi_step(op: Callable, V: torch.Tensor, k: int, shape) -> torch.Tensor:
-    """The device part of Arnoldi step ``k``: ``w = op(V[k])``, made
-    orthogonal to ``V[:k+1]`` by CGS2, and ``V[k+1] = w / |w|`` (``w`` itself
-    where ``|w| = 0``). ``V`` is the flat basis ``(restart+1, m)``. Returns the
-    step's Hessenberg column ``[h_0, ..., h_k, |w|]`` on the device."""
-    Vk = V[: k + 1]
+    """The device part of Arnoldi step ``k`` for B lanes: ``w = op(V[:, k])``,
+    made orthogonal to ``V[:, :k+1]`` by CGS2 (batched products), and
+    ``V[:, k+1] = w / |w|`` (``w`` itself where ``|w| = 0``). ``V`` is the
+    flat basis ``(B, restart+1, m)``, ``op`` maps states ``(B, *shape)``.
+    Returns the B Hessenberg columns ``[h_0, ..., h_k, |w|]``, ``(B, k+2)``,
+    on the device."""
+    B = V.shape[0]
+    Vk = V[:, : k + 1]
     Vh = Vk.conj() if V.is_complex() else Vk
-    w = op(V[k].view(shape)).reshape(-1)
-    h1 = torch.mv(Vh, w)
-    w = w - h1 @ Vk
-    h2 = torch.mv(Vh, w)
-    w = w - h2 @ Vk
-    hk1 = torch.linalg.norm(w)
-    V[k + 1] = w / torch.where(hk1 > 0, hk1, torch.ones_like(hk1))
-    return torch.cat([h1 + h2, hk1.to(V.dtype).reshape(1)])
+    w = op(V[:, k].reshape((B,) + tuple(shape))).reshape(B, -1)
+    h1 = torch.bmm(Vh, w[:, :, None])[:, :, 0]
+    w = w - torch.bmm(h1[:, None, :], Vk)[:, 0]
+    h2 = torch.bmm(Vh, w[:, :, None])[:, :, 0]
+    w = w - torch.bmm(h2[:, None, :], Vk)[:, 0]
+    hk1 = torch.linalg.norm(w, dim=1)
+    V[:, k + 1] = w / torch.where(hk1 > 0, hk1, torch.ones_like(hk1))[:, None]
+    return torch.cat([h1 + h2, hk1.to(V.dtype)[:, None]], dim=1)
 
 
 def givens_update(hcol: np.ndarray, k: int, R: np.ndarray, cs: np.ndarray, sn: np.ndarray, g: np.ndarray):
@@ -126,7 +132,7 @@ def givens_update(hcol: np.ndarray, k: int, R: np.ndarray, cs: np.ndarray, sn: n
     return np.abs(g[k + 1])
 
 
-def gmres(
+def gmres_batched(
     matvec: Callable[[torch.Tensor], torch.Tensor],
     b: torch.Tensor,
     *,
@@ -138,65 +144,110 @@ def gmres(
     maxiter: int = 1000,
     side: str = "left",
 ) -> GmresResult:
-    """Solve ``A x = b`` with preconditioner ``M ~= A^{-1}``.
+    """Solve ``A x = b`` for B systems ``b (B, *shape)`` at once, with
+    preconditioner ``M ~= A^{-1}`` and the semantics of the JAX package's
+    ``jax.vmap(gmres)``: each lane has its own
+    tolerance, residual history, iteration count and stopping test, and the
+    batch runs in lock-step. Restart cycles start together; within one,
+    every lane still running is at the same step, and a lane that has
+    converged or reached ``maxiter`` keeps its x, history and count while
+    the others go on. ``matvec`` and ``M`` map ``(B, *shape)`` states; like
+    ``vmap`` they run on every lane, and the steps of stopped lanes are
+    discarded. The result's fields all have a leading B axis.
+
+    The restart is clamped on the per-lane shape, as the JAX package's clamp
+    sees it under ``vmap``, so the iteration counts match; the Krylov basis
+    ``(B, restart+1, *shape)`` therefore takes B times the budget's
+    memory."""
+    if side not in ("left", "right"):
+        raise ValueError(f"unknown side {side!r}")
+    require_full_fp32_matmul()
+    if M is None:
+        M = lambda v: v
+    B, shape = b.shape[0], tuple(b.shape[1:])
+    np_t = np_dtype(b.dtype)
+    np_r = np.empty((), np_t).real.dtype
+    x = torch.zeros_like(b) if x0 is None else x0
+    restart = clamp_restart(restart, shape, b.dtype, maxiter)
+    op = (lambda v: M(matvec(v))) if side == "left" else (lambda v: matvec(M(v)))
+
+    def residual(x):
+        r = b - matvec(x)
+        r = M(r) if side == "left" else r
+        beta_t = torch.linalg.norm(r.reshape(B, -1), dim=1)
+        return r, beta_t, beta_t.cpu().numpy().astype(np_r)
+
+    V = torch.empty((B, restart + 1, b[0].numel()), dtype=b.dtype, device=b.device)
+    it = np.zeros(B, np.int64)
+    hist = np.full((B, maxiter + 1), np.nan, np_r)
+    r, beta_t, beta = residual(x)
+    tol = np.maximum(np_r.type(rtol) * beta, np_r.type(atol))
+    hist[:, 0] = beta
+    res = beta.copy()
+    running = (res > tol) & (it < maxiter)
+    while running.any():
+        scale = torch.where(beta_t > 0, beta_t, torch.ones_like(beta_t))
+        V[:, 0] = (r / scale.reshape((B,) + (1,) * len(shape))).reshape(B, -1)
+        R = np.zeros((B, restart, restart), np_t)
+        cs = np.zeros((B, restart), np_r)
+        sn = np.zeros((B, restart), np_t)
+        g = np.zeros((B, restart + 1), np_t)
+        g[:, 0] = beta
+        steps = np.zeros(B, np.int64)
+        res = np.where(running, beta, res)
+        active = running & (res > tol)
+        k = 0
+        while active.any():
+            hcol = arnoldi_step(op, V, k, shape).cpu().numpy()  # the step's one sync
+            for i in np.flatnonzero(active):
+                res[i] = givens_update(hcol[i], k, R[i], cs[i], sn[i], g[i])
+                hist[i, it[i] + k + 1] = res[i]
+                steps[i] = k + 1
+            k += 1
+            active &= (k < restart) & (res > tol) & (it + k < maxiter)
+        if steps.any():
+            Y = np.zeros((B, k), np_t)
+            for i in np.flatnonzero(steps):
+                ki = steps[i]
+                Y[i, :ki] = torch.linalg.solve_triangular(
+                    torch.from_numpy(R[i, :ki, :ki].copy()), torch.from_numpy(g[i, :ki].copy())[:, None], upper=True
+                )[:, 0].numpy()
+            Yd = torch.from_numpy(Y).to(b.device)
+            dx = torch.zeros_like(b)
+            for i in np.flatnonzero(steps):
+                dx[i] = (Yd[i, : steps[i]] @ V[i, : steps[i]]).view(shape)
+            x = x + (dx if side == "left" else M(dx))  # dx = 0 on lanes that took no step
+        it += steps
+        running = (res > tol) & (it < maxiter)
+        if running.any():
+            r, beta_t, beta = residual(x)
+
+    return GmresResult(
+        x=x,
+        iterations=torch.from_numpy(it),
+        converged=torch.from_numpy(res <= tol),
+        residual_norm=torch.from_numpy(res),
+        residual_history=torch.from_numpy(hist),
+    )
+
+
+def gmres(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    *,
+    M: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    x0: Optional[torch.Tensor] = None,
+    **kwargs,
+) -> GmresResult:
+    """Solve ``A x = b`` with preconditioner ``M ~= A^{-1}``: the one-lane
+    case of :func:`gmres_batched` (same keywords), fields without the batch
+    axis.
 
     ``matvec`` and ``M`` map states to states of ``b``'s shape and dtype
     (real or complex), on ``b``'s device. ``side``: 'left' (PETSc's default;
     convergence on the preconditioned residual norm, the reference's
     monitored counts) or 'right' (convergence on the true residual norm).
     """
-    if side not in ("left", "right"):
-        raise ValueError(f"unknown side {side!r}")
-    require_full_fp32_matmul()
-    if M is None:
-        M = lambda v: v
-    shape = b.shape
-    np_t = np_dtype(b.dtype)
-    np_r = np.empty((), np_t).real.dtype
-    if x0 is None:
-        x0 = torch.zeros_like(b)
-    restart = clamp_restart(restart, shape, b.dtype, maxiter)
-    op = (lambda v: M(matvec(v))) if side == "left" else (lambda v: matvec(M(v)))
-
-    def pres(x):
-        r = b - matvec(x)
-        return M(r) if side == "left" else r
-
-    # rows past the active k + 1 are never read, so the basis starts empty
-    V = torch.empty((restart + 1, b.numel()), dtype=b.dtype, device=b.device)
-    x, it, tol, res = x0, 0, None, None
-    hist = np.full((maxiter + 1,), np.nan, np_r)
-    while tol is None or (res > tol and it < maxiter):
-        r = pres(x)  # the (preconditioned) residual of x: a restart after the first cycle
-        beta_t = torch.linalg.norm(r.reshape(-1))
-        beta = beta_t.cpu().numpy()[()].astype(np_r)
-        if tol is None:
-            tol = np.maximum(np_r.type(rtol) * beta, np_r.type(atol))
-            hist[0] = beta
-        V[0] = (r / beta_t if beta > 0 else r).reshape(-1)
-        R = np.zeros((restart, restart), np_t)
-        cs = np.zeros((restart,), np_r)
-        sn = np.zeros((restart,), np_t)
-        g = np.zeros((restart + 1,), np_t)
-        g[0] = beta
-        k, res = 0, beta
-        while k < restart and res > tol and it + k < maxiter:
-            hcol = arnoldi_step(op, V, k, shape).cpu().numpy()  # the step's one sync
-            res = givens_update(hcol, k, R, cs, sn, g)
-            hist[it + k + 1] = res
-            k += 1
-        if k:
-            y = torch.linalg.solve_triangular(
-                torch.from_numpy(R[:k, :k].copy()), torch.from_numpy(g[:k].copy())[:, None], upper=True
-            )[:, 0]
-            dx = (y.to(b.device) @ V[:k]).view(shape)
-            x = x + (dx if side == "left" else M(dx))
-        it += k
-
-    return GmresResult(
-        x=x,
-        iterations=torch.tensor(it),
-        converged=torch.tensor(bool(res <= tol)),
-        residual_norm=torch.from_numpy(np.asarray(res, np_r)),
-        residual_history=torch.from_numpy(hist),
-    )
+    lane = lambda f: None if f is None else (lambda v: f(v[0])[None])
+    res = gmres_batched(lane(matvec), b[None], M=lane(M), x0=None if x0 is None else x0[None], **kwargs)
+    return GmresResult(*(field[0] for field in res))

@@ -28,9 +28,14 @@ The port has the diagonalizable ``method='woodbury'`` branch (1D, or 2D with
 ``mass='lumped'``): ``use_pallas=True`` routes it to the hand-written CUDA
 kernel (``paradiag/cuda_heat.py``), and ``polish`` adds physical-space defect
 correction. ``method='gmres'`` runs GMRES with the circulant ParaDiag
-preconditioner (:meth:`HeatControlProblem.build_preconditioner`). The other
-methods and the 2D consistent-mass Woodbury branch raise
-``NotImplementedError`` naming their ROADMAP item.
+preconditioner (:meth:`HeatControlProblem.build_preconditioner`),
+``method='minres'`` MINRES on the symmetrized system
+(:meth:`HeatControlProblem.build_symmetric_system`) and ``method='direct'``
+dense LU (:meth:`HeatControlProblem.dense`). The operators and the solver
+builders take states with leading batch axes, ``(..., 2, N_t, n)``, the
+counterpart of the JAX package's ``jax.vmap`` over them. The 2D
+consistent-mass Woodbury branch raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,21 +48,21 @@ import numpy as np
 import torch
 
 from optimal_control_paradiag_torch.config import ProblemConfig, SolverConfig
-from optimal_control_paradiag_torch.fem.space import P1Space, make_space, require_full_fp32_matmul
+from optimal_control_paradiag_torch.fem.space import P1Space, _np_shift, make_space, require_full_fp32_matmul
 from optimal_control_paradiag_torch.krylov.gmres import gmres
-from optimal_control_paradiag_torch.ops.allatonce import tshift
+from optimal_control_paradiag_torch.krylov.minres import minres
+from optimal_control_paradiag_torch.ops.allatonce import dense_lu_solver, dense_matrix, join_state, split_state, tshift
 from optimal_control_paradiag_torch.paradiag import spectral
 from optimal_control_paradiag_torch.paradiag.pc import complex_dtype
+from optimal_control_paradiag_torch.paradiag.symmetric import _swap
 from optimal_control_paradiag_torch.paradiag.spectral import (
     make_halfspectrum_transforms,
     pairing_weights,
 )
 from optimal_control_paradiag_torch.utils.constants import host_f64, resolve_device, to_device
 
-# Where each part that the port does not have yet stands in ROADMAP Queue A.
-_ITEM8 = "item 8 (MINRES, spectral GMRES and direct)"
+# Where the part that the port does not have yet stands in ROADMAP Queue A.
 _ITEM9 = "item 9 (2D consistent mass)"
-_NOT_PORTED = {"minres": _ITEM8, "direct": _ITEM8}
 
 
 def _not_ported(what: str, item: str):
@@ -156,13 +161,13 @@ class HeatControlProblem:
 
     def _rows(self, x: torch.Tensor, stiffness) -> torch.Tensor:
         sp, tau, th = self.space, self.tau, self._theta
-        u, p = x[0], x[1]
+        u, p = split_state(x)
         row_u = sp.apply_mass(u - tshift(u, 1)) + tau * stiffness(u) - th * sp.apply_mass(p)
         row_p = sp.apply_mass(p - tshift(p, -1)) + tau * stiffness(p) + th * sp.apply_mass(u)
-        return torch.stack([row_u, row_p])
+        return join_state(row_u, row_p)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """A @ x on scaled states ``(2, N_t, n)`` (module docstring)."""
+        """A @ x on scaled states ``(..., 2, N_t, n)`` (module docstring)."""
         return self._rows(x, self.space.apply_stiffness)
 
     def matvec_accurate(self, x: torch.Tensor) -> torch.Tensor:
@@ -186,13 +191,18 @@ class HeatControlProblem:
 
     # ------------------------------------------------------- spectral pieces
 
-    def _plan(self):
+    def _plan(self, mass_surrogate: bool = False):
         """Host float64 constants of the diagonalized system:
         ``(L1, muM, muK, a11, tm, det)`` with ``L1 = 1 - omega_k`` (N_t,),
-        ``a11`` and ``det`` (N_t, n), ``tm`` (1, n)."""
+        ``a11`` and ``det`` (N_t, n), ``tm`` (1, n). ``mass_surrogate``: on
+        the 2D consistent mass use the tensor-part mass spectrum
+        (``P1Space.spectrum_tensor``), a plan of the surrogate operator for
+        preconditioners only."""
         muM, muK = self.space.spectrum
         if muM is None:
-            raise ValueError("heat spectral solves need a sine-diagonalizable space")
+            if not mass_surrogate:
+                raise ValueError("heat spectral solves need a sine-diagonalizable space")
+            muM = self.space.spectrum_tensor
         N_t = self.config.N_t
         muM = np.asarray(muM, np.float64)
         muK = np.asarray(muK, np.float64)
@@ -273,32 +283,33 @@ class HeatControlProblem:
         tm = self._theta * m1[None, :]
         inv_det = 1.0 / (torch.square(a11.real) + torch.square(a11.imag) + torch.square(tm))
 
+        col = lambda v: v[..., None, :]  # a per-wavenumber row against (..., K, n)
+
         def D_inv(r):
-            yu = (a22 * r[0] + tm * r[1]) * inv_det
-            yp = (a11 * r[1] - tm * r[0]) * inv_det
-            return torch.stack([yu, yp])
+            ru, rp = split_state(r)
+            return join_state((a22 * ru + tm * rp) * inv_det, (a11 * rp - tm * ru) * inv_det)
 
         def extract(y):
+            yu, yp = split_state(y)
             return (
-                torch.sum(phi_uN[:, None] * y[0], dim=0).real,
-                torch.sum(phi_p1[:, None] * y[1], dim=0).real,
+                torch.sum(phi_uN[:, None] * yu, dim=-2).real,
+                torch.sum(phi_p1[:, None] * yp, dim=-2).real,
             )
 
         def A_hat(xi):
-            du = a11 * xi[0] - tm * xi[1]
-            dp = tm * xi[0] + a22 * xi[1]
+            xu, xp = split_state(xi)
+            du = a11 * xu - tm * xp
+            dp = tm * xu + a22 * xp
             uN, p1 = extract(xi)
-            du = du + psi_u1[:, None] * (m1 * uN)[None, :]
-            dp = dp + psi_pN[:, None] * (m1 * p1)[None, :]
-            return torch.stack([du, dp])
+            du = du + psi_u1[:, None] * col(m1 * uN)
+            dp = dp + psi_pN[:, None] * col(m1 * p1)
+            return join_state(du, dp)
 
         def wb_apply(r):
             y = D_inv(r)
             z = extract(y)
             w = [G[a][0] * z[0] + G[a][1] * z[1] for a in range(2)]
-            corr_u = psi_u1[:, None] * w[0][None, :]
-            corr_p = psi_pN[:, None] * w[1][None, :]
-            return y - D_inv(torch.stack([corr_u, corr_p]))
+            return y - D_inv(join_state(psi_u1[:, None] * col(w[0]), psi_pN[:, None] * col(w[1])))
 
         to_spectral, from_spectral = make_halfspectrum_transforms(
             self.space, N_t, rdtype, time_transform=time_transform
@@ -352,22 +363,52 @@ class HeatControlProblem:
         invdet = to_device(1.0 / det_h[:K], rdtype, dev)
 
         def apply_pc(r):
-            rh = torch.conj_physical(torch.fft.rfft(sp.dst(r), dim=1)) * (1.0 / N_t)
-            yu = (a22 * rh[0] + tm * rh[1]) * invdet
-            yp = (a11 * rh[1] - tm * rh[0]) * invdet
-            y = torch.fft.irfft(torch.conj_physical(torch.stack([yu, yp])), n=N_t, dim=1) * float(N_t)
+            ru, rp = split_state(torch.conj_physical(torch.fft.rfft(sp.dst(r), dim=-2)) * (1.0 / N_t))
+            yu = (a22 * ru + tm * rp) * invdet
+            yp = (a11 * rp - tm * ru) * invdet
+            y = torch.fft.irfft(torch.conj_physical(join_state(yu, yp)), n=N_t, dim=-2) * float(N_t)
             return sp.idst(y)
 
         return apply_pc
 
-    def build_symmetric_system(self, layout=None, time_transform=None):
-        _not_ported("the symmetrized system", _ITEM8)
+    def build_symmetric_system(self, layout=None, time_transform: Optional[str] = None):
+        """``(matvec_sym, pc_spd, swap)``, the wave family's symmetrized
+        ParaDiag (``paradiag/symmetric.py``) for the heat KKT system:
+        swapping the (u, p) block rows gives the exactly symmetric
+        ``[[th M, B^T], [B, -th M]]``, ``B = (I - T^-) (x) M + tau (x) K``.
+        Per (mode, wavenumber) the swapped circulant part is the traceless
+        Hermitian ``[[t, conj(a11)], [a11, -t]]`` with eigenvalues ``+/-
+        sqrt(det)``, so the SPD preconditioner is the scalar ``T^{-1}
+        det^{-1/2} T`` on the half spectrum (``time_transform``: the packed
+        FFT 'fft2' by default). The 2D consistent mass uses the tensor-part
+        surrogate spectrum in the preconditioner only."""
+        if layout is not None:
+            _not_ported("the sharded symmetric system", "item 14")
+        require_full_fp32_matmul()
+        sp = self.space
+        N_t = self.config.N_t
+        K = N_t // 2 + 1
+        _, _, _, _, _, det_h = self._plan(mass_surrogate=not sp.diagonalizable)
+        inv_sqrt_det = to_device(1.0 / np.sqrt(det_h[:K]), self.config.dtype, self.device)
+        to_s, from_s = make_halfspectrum_transforms(
+            sp, N_t, self.config.dtype, time_transform="fft2" if time_transform is None else time_transform
+        )
+
+        def matvec_sym(x):
+            return _swap(self.matvec(x))
+
+        def pc_spd(r):
+            return from_s(to_s(r) * inv_sqrt_det)
+
+        return matvec_sym, pc_spd, _swap
 
     def build_tensor_gmres_solver(self, rtol=1e-10, maxiter=60, with_result=False):
         _not_ported("the tensor-mass GMRES solve", _ITEM9)
 
-    def dense(self):
-        _not_ported("the dense matrix", _ITEM8)
+    def dense(self, chunk: int = 256) -> torch.Tensor:
+        """The dense all-at-once matrix ``(m, m)``, ``m = 2 N_t n``, on the
+        problem's device (small-size oracle and the direct solve)."""
+        return dense_matrix(self.matvec, (2, self.config.N_t, self.space.n), self.config.dtype, self.device, chunk)
 
     # ----------------------------------------------------------------- solve
 
@@ -382,10 +423,19 @@ class HeatControlProblem:
                 return res.x, res
 
             return run
+        if solver.method == "minres":
+            # as the JAX package: the SPD preconditioner whatever solver.pc
+            matvec_sym, pc_spd, swap = self.build_symmetric_system()
+
+            def run_minres(b):
+                res = minres(matvec_sym, swap(b), M=pc_spd, rtol=solver.rtol, maxiter=solver.maxiter)
+                return res.x, res
+
+            return run_minres
+        if solver.method == "direct":
+            return dense_lu_solver(self.dense(), (2, self.config.N_t, self.space.n))
         if solver.method != "woodbury":
-            if solver.method not in _NOT_PORTED:
-                raise NotImplementedError(f"heat model: method {solver.method!r}")
-            _not_ported(f"method={solver.method!r}", _NOT_PORTED[solver.method])
+            raise NotImplementedError(f"heat model: method {solver.method!r}")
         if not self.space.diagonalizable:
             _not_ported("the Woodbury solve of the 2D consistent mass (tensor GMRES)", _ITEM9)
         if solver.polish:
@@ -411,10 +461,10 @@ class HeatControlProblem:
         """Host float64 numpy twin of :meth:`matvec`: the residual oracle of
         float32 solutions."""
         sp, tau, th = self.space, self.tau, self._theta
-        u = np.asarray(x[0], np.float64)
-        p = np.asarray(x[1], np.float64)
-        um1 = np.concatenate([np.zeros_like(u[:1]), u[:-1]], axis=0)
-        pp1 = np.concatenate([p[1:], np.zeros_like(p[:1])], axis=0)
+        x = np.asarray(x, np.float64)
+        u, p = x[..., 0, :, :], x[..., 1, :, :]
+        um1 = _np_shift(u, 1, -2)
+        pp1 = _np_shift(p, -1, -2)
         row_u = (
             sp.apply_mass_host_f64(u - um1)
             + tau * sp.apply_stiffness_host_f64(u)
@@ -425,7 +475,7 @@ class HeatControlProblem:
             + tau * sp.apply_stiffness_host_f64(p)
             + th * sp.apply_mass_host_f64(u)
         )
-        return np.stack([row_u, row_p])
+        return np.stack([row_u, row_p], axis=-3)
 
     def relative_residual_f64(self, sol: HeatSolution) -> float:
         """True ``||A x - b|| / ||b||`` of the (dtype-rounded) system via the

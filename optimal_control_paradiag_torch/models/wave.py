@@ -2,11 +2,18 @@
 
 The counterpart of ``optimal_control_paradiag_tpu/models/wave.py``: space and
 operator setup, the manufactured data (f, g, u0, u1), the right-hand side,
-the solve, and validation against the manufactured solution. The port has
-the diagonalizable ``method='woodbury'`` branch, with ``polish``, and
-``method='gmres'``, the reference's own algorithm: restarted GMRES with the
-ParaDiag preconditioner (``fulldiag`` or ``eig`` with its inner solvers). The
-other methods raise ``NotImplementedError`` naming their ROADMAP item.
+the solve, and validation against the manufactured solution. Methods:
+
+- ``'gmres'``, the reference's own algorithm: restarted GMRES with the
+  ParaDiag preconditioner (``fulldiag`` or ``eig`` with its inner solvers);
+- ``'woodbury'``, the diagonalizable direct solve, with ``polish``;
+- ``'spectral'``: GMRES in ParaDiag-diagonalized coordinates;
+- ``'minres'``: MINRES on the block-row-swapped symmetric system;
+- ``'direct'``: dense LU of the assembled matrix (small problems).
+
+:meth:`WaveControlProblem.make_batched_solver_fn` solves B systems at once.
+What the port does not have yet (2D consistent-mass Woodbury, the block
+preconditioners) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,9 +27,10 @@ import torch
 
 from optimal_control_paradiag_torch.config import ProblemConfig, SolverConfig
 from optimal_control_paradiag_torch.fem.space import P1Space, make_space
-from optimal_control_paradiag_torch.krylov.gmres import gmres
+from optimal_control_paradiag_torch.krylov.gmres import gmres, gmres_batched
+from optimal_control_paradiag_torch.krylov.minres import minres
 from optimal_control_paradiag_torch.models.analytic import manufactured
-from optimal_control_paradiag_torch.ops.allatonce import build_operator, build_rhs
+from optimal_control_paradiag_torch.ops.allatonce import build_operator, build_rhs, dense_lu_solver
 from optimal_control_paradiag_torch.paradiag.inner import (
     make_cocg_inner_solver,
     make_dst_inner_solver,
@@ -32,17 +40,12 @@ from optimal_control_paradiag_torch.paradiag.inner import (
 from optimal_control_paradiag_torch.paradiag.pc import build_preconditioner
 from optimal_control_paradiag_torch.paradiag.spectral import (
     build_polished_solver,
+    build_spectral_system,
     build_woodbury_solver,
     spectral_relative_residual,
 )
+from optimal_control_paradiag_torch.paradiag.symmetric import build_symmetric_system
 from optimal_control_paradiag_torch.utils.constants import host_f64, resolve_device, to_device
-
-# Where each method that the port does not have yet stands in ROADMAP Queue A.
-_NOT_PORTED = {
-    "minres": "item 8 (MINRES, spectral GMRES and direct)",
-    "spectral": "item 8 (MINRES, spectral GMRES and direct)",
-    "direct": "item 8 (MINRES, spectral GMRES and direct)",
-}
 
 
 class WaveSolution(NamedTuple):
@@ -121,15 +124,46 @@ class WaveControlProblem:
         scale = math.sqrt(self.config.gamma) if self.config.scaled else 1.0
         return x[0] / scale, x[1]
 
-    def _make_solver(self, solver: SolverConfig):
+    def _make_solver(self, solver: SolverConfig, batched: bool = False):
+        """``run(b, x0=None) -> (x, result)``; ``batched``: b is ``(B, 2,
+        N_t, n)``, and the iterative methods keep a record per lane."""
         op = self.operator
+        krylov = gmres_batched if batched else gmres
         if solver.method == "gmres":
-            return self._make_gmres_solver(solver)
-        if solver.method != "woodbury":
-            raise NotImplementedError(
-                f"method={solver.method!r} is not ported yet: ROADMAP Queue A "
-                f"{_NOT_PORTED[solver.method]}"
-            )
+            return self._make_gmres_solver(solver, krylov)
+        if solver.method == "direct":
+            return dense_lu_solver(op.dense(), op.shape)
+        if solver.method == "spectral":
+            if solver.use_pallas:
+                raise ValueError(
+                    "the fused spectral-step Pallas kernel was removed after "
+                    "losing to the XLA-fused jnp path on hardware (v5e, "
+                    "N_x=2048/N_t=1024: 0.392 vs 0.357 ms per step, 592 ms "
+                    "either way end-to-end); use_pallas now applies to "
+                    "method='woodbury' (the fused full-solve kernel, which "
+                    "wins)"
+                )
+            A_hat, D_inv, to_s, from_s = build_spectral_system(op)
+
+            def run(b, x0=None):
+                res = krylov(A_hat, to_s(b), M=D_inv, x0=None if x0 is None else to_s(x0),
+                             restart=solver.restart, rtol=solver.rtol, atol=solver.atol, maxiter=solver.maxiter)
+                return from_s(res.x), res
+
+            return run
+        if solver.method == "minres":
+            # the block-row swap makes the system exactly symmetric; the SPD
+            # preconditioner is the scalar absolute-value circulant
+            # (paradiag/symmetric.py)
+            matvec_sym, pc_spd, swap_rhs = build_symmetric_system(op)
+            M = pc_spd if solver.pc == "paradiag" else None
+
+            def run(b, x0=None):
+                res = minres(matvec_sym, swap_rhs(b), M=M, x0=x0, rtol=solver.rtol, maxiter=solver.maxiter,
+                             batch_dims=int(batched))
+                return res.x, res
+
+            return run
         if not self.space.diagonalizable:
             raise NotImplementedError(
                 "the Woodbury solve of non-sine-diagonalizable spaces (2D consistent "
@@ -153,8 +187,9 @@ class WaveControlProblem:
 
         return run
 
-    def _make_gmres_solver(self, solver: SolverConfig):
-        """GMRES on the all-at-once system, preconditioned as the JAX
+    def _make_gmres_solver(self, solver: SolverConfig, krylov=gmres):
+        """GMRES (``krylov``: :func:`gmres`, or :func:`gmres_batched` for a
+        batch) on the all-at-once system, preconditioned as the JAX
         package's ``gmres`` branch routes it: ``inner='auto'`` keeps
         ``pc_variant``; an explicit inner solver selects the ``eig`` variant
         with that per-mode solve."""
@@ -196,7 +231,7 @@ class WaveControlProblem:
         mv = op.matvec_accurate if (f32 and not self.space.diagonalizable) else op.matvec
 
         def run(b, x0=None):
-            res = gmres(
+            res = krylov(
                 mv,
                 b,
                 M=pc_apply,
@@ -219,13 +254,33 @@ class WaveControlProblem:
             self._solver_cache[solver] = self._make_solver(solver)
         return self._solver_cache[solver]
 
+    def make_batched_solver_fn(self, solver: Optional[SolverConfig] = None):
+        """Solve many all-at-once systems at once: ``bs (B, 2, N_t, n) ->
+        (xs (B, 2, N_t, n), results)``, the counterpart of the JAX package's
+        ``jax.jit(jax.vmap(...))`` of the single solve, cached under
+        ``(solver, 'batched')``. The batch axis rides every layer: the
+        transforms and matvecs run on the whole batch, and a fused Woodbury
+        solve is ONE kernel launch (B1 takes a batch axis). ``x0``, if
+        given, is ``(B, 2, N_t, n)``.
+
+        The iterative methods run their lanes in lock-step, as ``vmap`` does:
+        the batch pays for its slowest lane, each lane keeps its own count
+        and history, and every field of the returned ``GmresResult`` /
+        ``MinresResult`` has a leading B axis. The direct methods return
+        ``None`` for the results."""
+        solver = solver or SolverConfig()
+        key = (solver, "batched")
+        if key not in self._solver_cache:
+            self._solver_cache[key] = self._make_solver(solver, batched=True)
+        return self._solver_cache[key]
+
     def solve(
         self, solver: Optional[SolverConfig] = None, x0: Optional[torch.Tensor] = None
     ) -> WaveSolution:
         """Solve the all-at-once system; returns physical (unscaled) u, p.
-        ``x0``: the warm-start iterate of ``method='gmres'``, in scaled
+        ``x0``: the warm-start iterate of the iterative methods, in scaled
         unknowns ``(2, N_t, n)`` (rtol is then relative to its initial
-        residual, PETSc's rule); the direct solve ignores it."""
+        residual, PETSc's rule); the direct solves ignore it."""
         x, res = self.make_solver_fn(solver)(self.rhs, x0)
         u, p = self._unscale(x)
         return WaveSolution(u=u, p=p, result=res)
@@ -299,3 +354,4 @@ class WaveControlProblem:
             )
             errs.append(np.linalg.norm(u[j] - ua))
         return float(np.max(errs))
+

@@ -26,13 +26,25 @@ from optimal_control_paradiag_torch.fem.space import P1Space, _np_shift, shift
 
 
 def tshift(x: torch.Tensor, s: int) -> torch.Tensor:
-    """y[i] = x[i-s] along the leading (time) axis, zero-padded."""
-    return shift(x, s, 0)
+    """y[..., i, :] = x[..., i-s, :] along the time axis (dim -2), zero-padded."""
+    return shift(x, s, -2)
+
+
+def split_state(x):
+    """(u, p) of a state ``(..., 2, N_t, n)``: dim -3 holds the two blocks."""
+    return x[..., 0, :, :], x[..., 1, :, :]
+
+
+def join_state(u, p):
+    """The state ``(..., 2, N_t, n)`` of blocks u and p: :func:`split_state`'s
+    inverse."""
+    return torch.stack([u, p], dim=-3)
 
 
 @dataclasses.dataclass(frozen=True)
 class AllAtOnceOperator:
-    """Matrix-free all-at-once operator A acting on states ``(2, N_t, n)``."""
+    """Matrix-free all-at-once operator A acting on states ``(2, N_t, n)``,
+    batched over leading axes ``(..., 2, N_t, n)``."""
 
     space: P1Space
     N_t: int
@@ -58,6 +70,10 @@ class AllAtOnceOperator:
     def shape(self):
         return (2, self.N_t, self.space.n)
 
+    @property
+    def size(self) -> int:
+        return 2 * self.N_t * self.space.n
+
     def _half_rows(self, x: torch.Tensor):
         """(cu, cp): the 1/2 coupling weights of the i=0 u-row and the
         i=N_t-1 p-row, as (N_t, 1) columns of x's dtype. Every matvec needs
@@ -73,9 +89,9 @@ class AllAtOnceOperator:
         return self._half_cache[key]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """A @ x for x of shape ``(2, N_t, n)`` (u = x[0], p = x[1])."""
+        """A @ x for x of shape ``(..., 2, N_t, n)``."""
         sp = self.space
-        u, p = x[0], x[1]
+        u, p = split_state(x)
         half_d2 = 0.5 * self.dt * self.dt
         mu, mp = sp.apply_mass(u), sp.apply_mass(p)
         ku, kp = sp.apply_stiffness(u), sp.apply_stiffness(p)
@@ -87,7 +103,7 @@ class AllAtOnceOperator:
         ap = (mp - 2.0 * tshift(mp, -1) + tshift(mp, -2)) + half_d2 * (kp + tshift(kp, -2))
         ap = ap + self.c_pu * cp * mu
 
-        return torch.stack([au, ap])
+        return join_state(au, ap)
 
     def matvec_accurate(self, x: torch.Tensor) -> torch.Tensor:
         """A @ x in cancellation-aware form: algebraically :meth:`matvec`,
@@ -107,7 +123,7 @@ class AllAtOnceOperator:
         (``paradiag.spectral.build_polished_solver``) measures ``b - A x``
         with it, below the float32 representation floor of x."""
         sp = self.space
-        u, p = x[0], x[1]
+        u, p = split_state(x)
         half_d2 = 0.5 * self.dt * self.dt
         du1 = u - tshift(u, 1)
         d2u = du1 - tshift(du1, 1)
@@ -119,14 +135,18 @@ class AllAtOnceOperator:
         au = au - self.c_up * cu * sp.apply_mass(p)
         ap = sp.apply_mass(d2p) + half_d2 * (kp + tshift(kp, -2))
         ap = ap + self.c_pu * cp * sp.apply_mass(u)
-        return torch.stack([au, ap])
+        return join_state(au, ap)
+
+    def matvec_flat(self, x: torch.Tensor) -> torch.Tensor:
+        """A @ x for flat x of length ``2 * N_t * n`` (batched: ``(..., size)``)."""
+        return self.matvec(x.reshape(x.shape[:-1] + self.shape)).reshape(x.shape)
 
     def matvec_host_f64(self, x: np.ndarray) -> np.ndarray:
         """A @ x in float64 numpy on the host: the residual oracle twin of
         :meth:`matvec`."""
         sp = self.space
         x = np.asarray(x, np.float64)
-        u, p = x[0], x[1]
+        u, p = x[..., 0, :, :], x[..., 1, :, :]
         half_d2 = 0.5 * self.dt * self.dt
         mu, mp = sp.apply_mass_host_f64(u), sp.apply_mass_host_f64(p)
         ku, kp = sp.apply_stiffness_host_f64(u), sp.apply_stiffness_host_f64(p)
@@ -134,16 +154,79 @@ class AllAtOnceOperator:
         cu[0, 0] = 0.5
         cp = np.ones((self.N_t, 1))
         cp[-1, 0] = 0.5
-        sh = lambda a, s: _np_shift(a, s, 0)
+        sh = lambda a, s: _np_shift(a, s, -2)
         au = (mu - 2.0 * sh(mu, 1) + sh(mu, 2)) + half_d2 * (ku + sh(ku, 2))
         au = au - self.c_up * cu * mp
         ap = (mp - 2.0 * sh(mp, -1) + sh(mp, -2)) + half_d2 * (kp + sh(kp, -2))
         ap = ap + self.c_pu * cp * mu
-        return np.stack([au, ap])
+        return np.stack([au, ap], axis=-3)
+
+    def dense(self, chunk: int = 256) -> torch.Tensor:
+        """A as a dense ``(size, size)`` matrix on the space's device (small
+        problems: the direct solve, and the test oracle)."""
+        return dense_matrix(self.matvec, self.shape, self.space.dtype, self.space.device, chunk)
 
 
 def build_operator(space: P1Space, N_t: int, dt: float, gamma: float, scaled: bool = True) -> AllAtOnceOperator:
     return AllAtOnceOperator(space=space, N_t=N_t, dt=dt, gamma=gamma, scaled=scaled)
+
+
+def dense_matrix(matvec, shape, dtype, device, chunk: int = 256) -> torch.Tensor:
+    """The dense ``(m, m)`` matrix of a linear ``matvec`` on states ``(...,
+    *shape)``, m their size: its columns built ``chunk`` unit vectors at a
+    time through the batched matvec, as the JAX package's ``lax.map(...,
+    batch_size=256)`` does."""
+    m = int(np.prod(shape))
+    A = torch.empty((m, m), dtype=dtype, device=device)
+    for j0 in range(0, m, chunk):
+        w = min(chunk, m - j0)
+        eye = torch.zeros((w, m), dtype=dtype, device=device)
+        rows = torch.arange(w, device=device)
+        eye[rows, j0 + rows] = 1.0
+        A[:, j0 : j0 + w] = matvec(eye.reshape((w,) + tuple(shape))).reshape(w, m).T
+    return A
+
+
+def dense_lu_solver(A: torch.Tensor, shape):
+    """``run(b, x0=None) -> (x, None)``: the LU factors of a dense matrix
+    ``A`` (``torch.linalg.lu_factor``; cuSOLVER on the card), made once,
+    and a solve of b ``(..., *shape)`` per call; ``x0`` is ignored."""
+    LU, piv = torch.linalg.lu_factor(A)
+
+    def run(b, x0=None):
+        lead = b.shape[: b.dim() - len(shape)]
+        rhs = b.reshape((-1, A.shape[0])).T
+        return torch.linalg.lu_solve(LU, piv, rhs).T.reshape(lead + tuple(shape)), None
+
+    return run
+
+
+def operator_nnz(op: AllAtOnceOperator) -> int:
+    """Exact nonzero count of the assembled all-at-once matrix (the 'aij'
+    matrix the reference hands to MUMPS). Per time level the u-row at time i
+    touches u through the M+K pattern at level i, M alone at level i-1, M+K
+    at level i-2, and p through M at level i; p-rows mirror it backward.
+    Spatial pattern sizes on the interior grid (m = n1d):
+
+      1D: M, K, and their union are tridiagonal: 3m - 2.
+      2D consistent: M is the 7-point FK stencil (7m^2 - 8m + 2), K the
+        5-point (5m^2 - 4m), union = M's pattern.
+      2D lumped: M diagonal (m^2), union = K's 5-point pattern.
+    """
+    sp = op.space
+    m = sp.n1d
+    if sp.dim == 1:
+        tri = 3 * m - 2
+        pM = m if sp.mass == "lumped" else tri
+        pMK = tri
+    else:
+        five = 5 * m * m - 4 * m
+        seven = 7 * m * m - 8 * m + 2
+        pM = m * m if sp.mass == "lumped" else seven
+        pMK = five if sp.mass == "lumped" else seven
+    N_t = op.N_t
+    per_block = N_t * pMK + (N_t - 1) * pM + (N_t - 2) * pMK + N_t * pM
+    return 2 * per_block
 
 
 def build_rhs(

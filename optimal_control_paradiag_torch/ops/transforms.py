@@ -4,8 +4,8 @@ The counterpart of ``optimal_control_paradiag_tpu/ops/transforms.py``. Three
 families, all with the numpy fft conventions of the JAX package:
 
 - **DFT-by-matmul**: F = C +- iS with real cos/sin matrices, applied as real
-  matmuls on the split (re, im) parts over the time axis of ``(c, N_t, n)``
-  states (``dft_matrices``, ``time_ifft_mm``, ...);
+  matmuls on the split (re, im) parts over the time axis of ``(..., N_t, n)``
+  states (dim -2; leading axes are a batch) (``dft_matrices``, ``time_ifft_mm``, ...);
 - **four-step** (Cooley-Tukey N = a*b): the half-spectrum time transforms
   (``FourStepPlan``) and the DST-I over the last axis (``DstFourStepPlan``)
   as two small-radix real matmul stages with a twiddle multiply between;
@@ -16,8 +16,8 @@ families, all with the numpy fft conventions of the JAX package:
 
 Conventions of the half-spectrum transforms (c in {u, p}):
 
-  forward:  xi_c = conj(rfft(s_c, axis=1)) / N
-  inverse:  t_c  = irfft(conj(xi_c), n=N, axis=1) * N
+  forward:  xi_c = conj(rfft(s_c, axis=-2)) / N
+  inverse:  t_c  = irfft(conj(xi_c), n=N, axis=-2) * N
 
 The matrices are built in float64 numpy, cast once to the working dtype and
 copied to the device once. Every matmul runs in full float32 (or float64):
@@ -60,26 +60,26 @@ def dft_matrices(N: int, dtype, device="cuda") -> Tuple[torch.Tensor, torch.Tens
 
 
 def _apply(C, S, xr, xi, sign: int, scale: float):
-    """(C + sign*i*S)(xr + i*xi) * scale over the time axis (axis 1 of
-    ``(c, N_t, n)`` states), as real contractions."""
-    cr = torch.einsum("kt,ctn->ckn", C, xr)
-    ci = torch.einsum("kt,ctn->ckn", C, xi)
-    sr = torch.einsum("kt,ctn->ckn", S, xr)
-    si = torch.einsum("kt,ctn->ckn", S, xi)
+    """(C + sign*i*S)(xr + i*xi) * scale over the time axis (dim -2 of
+    ``(..., N_t, n)`` states), as real contractions."""
+    cr = torch.einsum("kt,...tn->...kn", C, xr)
+    ci = torch.einsum("kt,...tn->...kn", C, xi)
+    sr = torch.einsum("kt,...tn->...kn", S, xr)
+    si = torch.einsum("kt,...tn->...kn", S, xi)
     re = cr - sign * si
     im = ci + sign * sr
     return re * scale, im * scale
 
 
 def time_ifft_mm(x: torch.Tensor, C, S) -> torch.Tensor:
-    """numpy ``ifft`` over axis 1: (1/N)(C + iS) applied to complex x."""
+    """numpy ``ifft`` over the time axis: (1/N)(C + iS) applied to complex x."""
     N = C.shape[0]
     re, im = _apply(C, S, x.real, x.imag, sign=+1, scale=1.0 / N)
     return torch.complex(re, im)
 
 
 def time_fft_mm(x: torch.Tensor, C, S) -> torch.Tensor:
-    """numpy ``fft`` over axis 1: (C - iS) applied to complex x."""
+    """numpy ``fft`` over the time axis: (C - iS) applied to complex x."""
     re, im = _apply(C, S, x.real, x.imag, sign=-1, scale=1.0)
     return torch.complex(re, im)
 
@@ -87,15 +87,15 @@ def time_fft_mm(x: torch.Tensor, C, S) -> torch.Tensor:
 def time_ifft_real_mm(x: torch.Tensor, C, S) -> torch.Tensor:
     """ifft of a REAL x: two matmuls instead of four."""
     N = C.shape[0]
-    re = torch.einsum("kt,ctn->ckn", C, x) * (1.0 / N)
-    im = torch.einsum("kt,ctn->ckn", S, x) * (1.0 / N)
+    re = torch.einsum("kt,...tn->...kn", C, x) * (1.0 / N)
+    im = torch.einsum("kt,...tn->...kn", S, x) * (1.0 / N)
     return torch.complex(re, im)
 
 
 def time_fft_real_part_mm(x: torch.Tensor, C, S) -> torch.Tensor:
     """real(fft(x)) for complex x: two matmuls (the imaginary output is
     discarded by the ParaDiag apply anyway)."""
-    return torch.einsum("kt,ctn->ckn", C, x.real) + torch.einsum("kt,ctn->ckn", S, x.imag)
+    return torch.einsum("kt,...tn->...kn", C, x.real) + torch.einsum("kt,...tn->...kn", S, x.imag)
 
 
 # ---------------------------------------------------------------------------
@@ -156,43 +156,45 @@ class FourStepPlan:
 
 
 def time_rfft_conj_mm4(x: torch.Tensor, p: FourStepPlan) -> torch.Tensor:
-    """``conj(rfft(x, axis=1)) / N`` of a real ``(c, N, n)`` state via the
-    four-step factorization (module note). Returns ``(c, K, n)`` complex."""
-    c, N, n = x.shape
-    x4 = x.reshape(c, p.b, p.a, n)  # [t2, t1]
-    yre = torch.einsum("KT,cTan->cKan", p.Cb, x4)
-    yim = torch.einsum("KT,cTan->cKan", p.Sb, x4)
-    wre, wim = p.Wre[None, :, :, None], p.Wim[None, :, :, None]
+    """``conj(rfft(x, axis=-2)) / N`` of a real ``(..., N, n)`` state via the
+    four-step factorization (module note). Returns ``(..., K, n)`` complex."""
+    lead, (N, n) = x.shape[:-2], x.shape[-2:]
+    x4 = x.reshape(lead + (p.b, p.a, n))  # [t2, t1]
+    yre = torch.einsum("KT,...Tan->...Kan", p.Cb, x4)
+    yim = torch.einsum("KT,...Tan->...Kan", p.Sb, x4)
+    wre, wim = p.Wre[:, :, None], p.Wim[:, :, None]
     zre = yre * wre - yim * wim
     zim = yre * wim + yim * wre
-    Xre = torch.einsum("AT,cKTn->cAKn", p.Ca, zre) - torch.einsum("AT,cKTn->cAKn", p.Sa, zim)
-    Xim = torch.einsum("AT,cKTn->cAKn", p.Ca, zim) + torch.einsum("AT,cKTn->cAKn", p.Sa, zre)
-    return torch.complex(Xre.reshape(c, N, n)[:, : p.K], Xim.reshape(c, N, n)[:, : p.K])
+    Xre = torch.einsum("AT,...KTn->...AKn", p.Ca, zre) - torch.einsum("AT,...KTn->...AKn", p.Sa, zim)
+    Xim = torch.einsum("AT,...KTn->...AKn", p.Ca, zim) + torch.einsum("AT,...KTn->...AKn", p.Sa, zre)
+    out = lambda X: X.reshape(lead + (N, n))[..., : p.K, :]
+    return torch.complex(out(Xre), out(Xim))
 
 
 def time_irfft_conj_mm4(xi: torch.Tensor, p: FourStepPlan) -> torch.Tensor:
-    """``irfft(conj(xi), n=N, axis=1) * N`` of a ``(c, K, n)`` half spectrum
-    via the four-step factorization; returns the real ``(c, N, n)`` state."""
-    c, K, n = xi.shape
+    """``irfft(conj(xi), n=N, axis=-2) * N`` of a ``(..., K, n)`` half
+    spectrum via the four-step factorization; returns the real
+    ``(..., N, n)`` state."""
+    lead, (K, n) = xi.shape[:-2], xi.shape[-2:]
     N = p.N
     # Hermitian extension of conj(xi): Z[k] = conj(xi)[k] for k < K,
     # Z[N-k] = xi[k] for the mirrored bins (works for N odd and even).
-    mre, mim = xi.real[:, 1 : N - K + 1], xi.imag[:, 1 : N - K + 1]
-    Zre = torch.cat([xi.real, torch.flip(mre, dims=(1,))], dim=1)
-    Zim = torch.cat([-xi.imag, torch.flip(mim, dims=(1,))], dim=1)
-    Z4re = Zre.reshape(c, p.a, p.b, n)  # [k1, k2]
-    Z4im = Zim.reshape(c, p.a, p.b, n)
+    mre, mim = xi.real[..., 1 : N - K + 1, :], xi.imag[..., 1 : N - K + 1, :]
+    Zre = torch.cat([xi.real, torch.flip(mre, dims=(-2,))], dim=-2)
+    Zim = torch.cat([-xi.imag, torch.flip(mim, dims=(-2,))], dim=-2)
+    Z4re = Zre.reshape(lead + (p.a, p.b, n))  # [k1, k2]
+    Z4im = Zim.reshape(lead + (p.a, p.b, n))
     # stage 1: radix-a DFT over k1 (output index t1)
-    are = torch.einsum("TA,cAKn->cTKn", p.Ca, Z4re) - torch.einsum("TA,cAKn->cTKn", p.Sa, Z4im)
-    aim = torch.einsum("TA,cAKn->cTKn", p.Ca, Z4im) + torch.einsum("TA,cAKn->cTKn", p.Sa, Z4re)
+    are = torch.einsum("TA,...AKn->...TKn", p.Ca, Z4re) - torch.einsum("TA,...AKn->...TKn", p.Sa, Z4im)
+    aim = torch.einsum("TA,...AKn->...TKn", p.Ca, Z4im) + torch.einsum("TA,...AKn->...TKn", p.Sa, Z4re)
     # twiddle W[k2, t1] applied as [t1, k2]
-    wre = p.Wre.T[None, :, :, None]
-    wim = p.Wim.T[None, :, :, None]
+    wre = p.Wre.T[:, :, None]
+    wim = p.Wim.T[:, :, None]
     bre = are * wre - aim * wim
     bim = are * wim + aim * wre
     # stage 2: radix-b DFT over k2, REAL part only (output index t2)
-    out = torch.einsum("TK,ctKn->cTtn", p.Cb1, bre) - torch.einsum("TK,ctKn->cTtn", p.Sb1, bim)
-    return out.reshape(c, N, n)
+    out = torch.einsum("TK,...tKn->...Ttn", p.Cb1, bre) - torch.einsum("TK,...tKn->...Ttn", p.Sb1, bim)
+    return out.reshape(lead + (N, n))
 
 
 # ---------------------------------------------------------------------------
@@ -260,24 +262,26 @@ def dst1_mm4(x: torch.Tensor, p: DstFourStepPlan) -> torch.Tensor:
 
 
 def time_rfft_conj_packed(s: torch.Tensor, N: int) -> torch.Tensor:
-    """``conj(rfft(s, axis=1))/N`` of a real ``(2, N, n)`` pair via one
-    packed complex FFT; returns a contiguous ``(2, K, n)`` complex tensor."""
+    """``conj(rfft(s, axis=-2))/N`` of a real ``(..., 2, N, n)`` pair via one
+    packed complex FFT; returns a contiguous ``(..., 2, K, n)`` complex
+    tensor."""
     K = N // 2 + 1
-    Z = torch.fft.fft(torch.complex(s[0], s[1]), dim=0)
+    Z = torch.fft.fft(torch.complex(s[..., 0, :, :], s[..., 1, :, :]), dim=-2)
     # Zm[k] = conj(Z[(N - k) % N])
-    Zm = torch.roll(torch.flip(Z, dims=(0,)), 1, dims=0).conj()
+    Zm = torch.roll(torch.flip(Z, dims=(-2,)), 1, dims=-2).conj()
     R0 = 0.5 * (Z + Zm)  # rfft(s0), all N bins (Hermitian)
     R1 = -0.5j * (Z - Zm)  # rfft(s1)
-    return torch.stack([R0[:K].conj(), R1[:K].conj()]) * (1.0 / N)
+    return torch.stack([R0[..., :K, :].conj(), R1[..., :K, :].conj()], dim=-3) * (1.0 / N)
 
 
 def time_irfft_conj_packed(xi: torch.Tensor, N: int) -> torch.Tensor:
-    """``irfft(conj(xi_c), n=N, axis=1) * N`` for the ``(2, K, n)`` pair via
-    one packed complex inverse FFT; returns the real ``(2, N, n)`` pair."""
-    K = xi.shape[1]
-    a, b = xi[0].conj(), xi[1].conj()
+    """``irfft(conj(xi_c), n=N, axis=-2) * N`` for the ``(..., 2, K, n)``
+    pair via one packed complex inverse FFT; returns the real
+    ``(..., 2, N, n)`` pair."""
+    K = xi.shape[-2]
+    a, b = xi[..., 0, :, :].conj(), xi[..., 1, :, :].conj()
     W = (a + 1j * b) * N  # R0 + i R1, bins < K
     W2 = (a - 1j * b) * N  # R0 - i R1
-    mirror = torch.flip(W2[1 : N - K + 1].conj(), dims=(0,))  # bins K..N-1
-    z = torch.fft.ifft(torch.cat([W, mirror], dim=0), dim=0)
-    return torch.stack([z.real, z.imag])
+    mirror = torch.flip(W2[..., 1 : N - K + 1, :].conj(), dims=(-2,))  # bins K..N-1
+    z = torch.fft.ifft(torch.cat([W, mirror], dim=-2), dim=-2)
+    return torch.stack([z.real, z.imag], dim=-3)

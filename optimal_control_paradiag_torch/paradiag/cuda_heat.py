@@ -185,9 +185,10 @@ def pack_heat_constants(prob) -> HeatConstants:
 def fused_heat_reference(b_hat: torch.Tensor, c: HeatConstants, refine: int) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: the Pallas kernel body
     (``pallas_heat.py:42-113``) on split real (K, n) planes. ``b_hat`` is a
-    (2, K, n) complex tensor; returns the same."""
+    (2, K, n) or (B, 2, K, n) complex tensor; returns the same."""
     br = torch.view_as_real(b_hat)
-    bur, bui, bpr, bpi = br[0, ..., 0], br[0, ..., 1], br[1, ..., 0], br[1, ..., 1]
+    bur, bui = br[..., 0, :, :, 0], br[..., 0, :, :, 1]
+    bpr, bpi = br[..., 1, :, :, 0], br[..., 1, :, :, 1]
     a11r, a11i, invdet = c.a11r, c.a11i, c.invdet
     m1, tm1, g00, g01, g10, g11 = (c.colc[i] for i in range(6))
     ph = [c.phases[:, i : i + 1] for i in range(8)]
@@ -202,12 +203,13 @@ def fused_heat_reference(b_hat: torch.Tensor, c: HeatConstants, refine: int) -> 
 
     def extract(ur, ui, pr, pi):
         # Real part of sum_k phi_k y_k, pairing weights folded into phi.
-        uN = torch.sum(ph[0] * ur - ph[1] * ui, dim=0)
-        p1 = torch.sum(ph[2] * pr - ph[3] * pi, dim=0)
+        uN = torch.sum(ph[0] * ur - ph[1] * ui, dim=-2)
+        p1 = torch.sum(ph[2] * pr - ph[3] * pi, dim=-2)
         return uN, p1
 
     def psi_outer(wu, wp):
         # psi (x) w: u row 0 and p row N_t - 1 (w real per wavenumber)
+        wu, wp = wu[..., None, :], wp[..., None, :]
         return ph[4] * wu, ph[5] * wu, ph[6] * wp, ph[7] * wp
 
     def wb_apply(rur, rui, rpr, rpi):
@@ -233,7 +235,7 @@ def fused_heat_reference(b_hat: torch.Tensor, c: HeatConstants, refine: int) -> 
         xur, xui = xur + cur, xui + cui
         xpr, xpi = xpr + cpr, xpi + cpi
 
-    out = torch.stack([torch.stack([xur, xui], -1), torch.stack([xpr, xpi], -1)])
+    out = torch.stack([torch.stack([xur, xui], -1), torch.stack([xpr, xpi], -1)], dim=-4)
     return torch.view_as_complex(out.contiguous())
 
 
@@ -241,10 +243,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the ctypes signatures of a build of ``csrc/heat_woodbury.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.heat_streaming_f32, lib.heat_streaming_f64):
-        fn.argtypes = [p] * 7 + [i, i, i, i, p]
+        fn.argtypes = [p] * 7 + [i] * 5 + [p]
         fn.restype = i
     for fn in (lib.heat_slab_f32, lib.heat_slab_f64):
-        fn.argtypes = [p] * 8 + [i] * 8 + [p]
+        fn.argtypes = [p] * 8 + [i] * 9 + [p]
         fn.restype = i
     lib.heat_woodbury_error_string.argtypes = [i]
     lib.heat_woodbury_error_string.restype = ctypes.c_char_p
@@ -310,7 +312,8 @@ def _launch(
 def fused_heat(b_hat: torch.Tensor, consts: HeatConstants, refine: int) -> torch.Tensor:
     """``x = A_hat^{-1} b_hat`` of the heat family on the half spectrum, with
     ``refine`` defect corrections. ``b_hat`` is a contiguous (2, K, n)
-    complex tensor.
+    complex tensor, or a batch of them, (B, 2, K, n): one launch for the
+    whole batch.
 
     A CUDA tensor goes to the kernel the constants' schedule names (one
     launch, counted in ``fused_heat.launches`` and by kind in

@@ -118,9 +118,10 @@ def fused_woodbury_reference(
 ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: the Pallas kernel body
     (``pallas_woodbury.py:57-140``) on split real (K, n) planes. ``b_hat``
-    is a (2, K, n) complex tensor; returns the same."""
+    is a (2, K, n) or (B, 2, K, n) complex tensor; returns the same."""
     br = torch.view_as_real(b_hat)
-    bur, bui, bpr, bpi = br[0, ..., 0], br[0, ..., 1], br[1, ..., 0], br[1, ..., 1]
+    bur, bui = br[..., 0, :, :, 0], br[..., 0, :, :, 1]
+    bpr, bpi = br[..., 1, :, :, 0], br[..., 1, :, :, 1]
     a11r, a11i, invdet = c.a11r, c.a11i, c.invdet
     m1, kap1, tm1, mk1 = c.colc[0], c.colc[1], c.colc[2], c.colc[3]
     gc = c.gc
@@ -136,13 +137,14 @@ def fused_woodbury_reference(
 
     def extract(ur, ui, pr, pi):
         # Real part of sum_k phi_k y_k with the pairing weights in phi.
-        uN1 = torch.sum(ph[0] * ur - ph[1] * ui, dim=0)
-        uN2 = torch.sum(ph[2] * ur - ph[3] * ui, dim=0)
-        p0 = torch.sum(ph[4] * pr - ph[5] * pi, dim=0)
-        p1 = torch.sum(ph[6] * pr - ph[7] * pi, dim=0)
+        uN1 = torch.sum(ph[0] * ur - ph[1] * ui, dim=-2)
+        uN2 = torch.sum(ph[2] * ur - ph[3] * ui, dim=-2)
+        p0 = torch.sum(ph[4] * pr - ph[5] * pi, dim=-2)
+        p1 = torch.sum(ph[6] * pr - ph[7] * pi, dim=-2)
         return uN1, uN2, p0, p1
 
     def psi_outer(w0, w1, w2, w3):
+        w0, w1, w2, w3 = (w[..., None, :] for w in (w0, w1, w2, w3))  # rows against (..., K, n)
         return (
             ph[8] * w0 + ph[10] * w1,
             ph[9] * w0 + ph[11] * w1,
@@ -181,7 +183,7 @@ def fused_woodbury_reference(
         xur, xui = xur + cur, xui + cui
         xpr, xpi = xpr + cpr, xpi + cpi
 
-    out = torch.stack([torch.stack([xur, xui], -1), torch.stack([xpr, xpi], -1)])
+    out = torch.stack([torch.stack([xur, xui], -1), torch.stack([xpr, xpi], -1)], dim=-4)
     return torch.view_as_complex(out.contiguous())
 
 
@@ -274,10 +276,10 @@ def _kernel_library() -> ctypes.CDLL:
     lib = load_library(KERNEL_SOURCE).lib
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.woodbury_streaming_f32, lib.woodbury_streaming_f64):
-        fn.argtypes = [p] * 8 + [i, i, i, i, p]
+        fn.argtypes = [p] * 8 + [i] * 5 + [p]
         fn.restype = i
     for fn in (lib.woodbury_slab_f32, lib.woodbury_slab_f64):
-        fn.argtypes = [p] * 8 + [i] * 8 + [p]
+        fn.argtypes = [p] * 8 + [i] * 9 + [p]
         fn.restype = i
     lib.woodbury_error_string.argtypes = [i]
     lib.woodbury_error_string.restype = ctypes.c_char_p
@@ -318,12 +320,13 @@ def _launch(b_hat: torch.Tensor, consts: WoodburyConstants, refine: int, sched: 
 
 def fused_woodbury(b_hat: torch.Tensor, consts: WoodburyConstants, refine: int) -> torch.Tensor:
     """``x = A_hat^{-1} b_hat`` on the half spectrum, with ``refine`` defect
-    corrections. ``b_hat`` is a contiguous (2, K, n) complex tensor.
+    corrections. ``b_hat`` is a contiguous (2, K, n) complex tensor, or a
+    batch of them, (B, 2, K, n).
 
     A CUDA tensor goes to the kernel :func:`woodbury_schedule` picks for its
-    shape (one launch, counted in ``fused_woodbury.launches``); a build
-    failure or a refused or failed launch raises. A CPU tensor goes to
-    :func:`fused_woodbury_reference`."""
+    shape: one launch for the whole batch, counted once in
+    ``fused_woodbury.launches``; a build failure or a refused or failed
+    launch raises. A CPU tensor goes to :func:`fused_woodbury_reference`."""
     if b_hat.device.type == "cpu":
         return fused_woodbury_reference(b_hat, consts, refine)
     if b_hat.device.type != "cuda":

@@ -3,7 +3,8 @@
 The counterpart of ``optimal_control_paradiag_tpu/paradiag/inner.py``. Each
 returns ``solve(sigma, rhs)``: the solutions of ``(sigma_k M + dt^2/2 K) w_k
 = rhs_k`` for per-mode complex shifts ``sigma`` (N_t, 1) and right-hand sides
-(N_t, n), batched over the modes:
+(N_t, n), batched over the modes and over any leading axes of ``rhs``
+(lanes of a batched solve):
 
 - **dst**: the exact sine-spectral inverse; needs M and K sine-diagonalizable
   (1D, or 2D lumped);
@@ -93,6 +94,7 @@ def make_cocg_inner_solver(space: P1Space, dt: float, tol: float = 1e-10, maxite
             dot_axes=(-1,),
             tol=tol,
             maxiter=maxiter,
+            batch_dims=rhs.ndim - 2,
         )
         return x
 

@@ -36,7 +36,7 @@ import torch
 
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
 from optimal_control_paradiag_torch.ops import transforms
-from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator
+from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator, join_state, split_state
 from optimal_control_paradiag_torch.paradiag.eigs import circulant_eigs
 from optimal_control_paradiag_torch.paradiag.inner import make_dst_inner_solver
 from optimal_control_paradiag_torch.utils.constants import to_device
@@ -61,7 +61,8 @@ def build_preconditioner(
     layout=None,
     time_transform: Optional[str] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Return ``apply(r) -> y ~= P^{-1} r`` on ``(2, N_t, n)`` states.
+    """Return ``apply(r) -> y ~= P^{-1} r`` on ``(..., 2, N_t, n)`` states
+    (leading axes are a batch; time is dim -2).
 
     ``inner_solver(sigma, rhs)``, if given, overrides the per-mode spatial
     solve of the 'eig' variant: it receives per-mode complex shifts ``sigma``
@@ -108,10 +109,10 @@ def build_preconditioner(
     else:
 
         def ifft_t(r):
-            return torch.fft.ifft(r.to(cdtype), dim=1)
+            return torch.fft.ifft(r.to(cdtype), dim=-2)
 
         def fft_t_real(y):
-            return torch.fft.fft(y, dim=1).real
+            return torch.fft.fft(y, dim=-2).real
 
     if variant == "fulldiag":
         muM, muK = sp.spectrum
@@ -132,11 +133,10 @@ def build_preconditioner(
         det = to_device(det_h, rdtype, dev)
 
         def apply_fulldiag(r: torch.Tensor) -> torch.Tensor:
-            rt = sp.dst(ifft_t(r))
-            ru, rp = rt[0], rt[1]
+            ru, rp = split_state(sp.dst(ifft_t(r)))
             yu = (a22 * ru + coup * rp) / det  # -a12 = +coup
             yp = (a11 * rp - coup * ru) / det  # a21 = +coup
-            return fft_t_real(sp.idst(torch.stack([yu, yp])))
+            return fft_t_real(sp.idst(join_state(yu, yp)))
 
         return apply_fulldiag
 
@@ -153,8 +153,7 @@ def build_preconditioner(
         inner_solver = make_dst_inner_solver(sp, op.dt)
 
     def apply_eig(r: torch.Tensor) -> torch.Tensor:
-        rhat = ifft_t(r)
-        ru, rp = rhat[0], rhat[1]
+        ru, rp = split_state(ifft_t(r))
         # S^{-1} mix (det S = 2)
         wu = 0.5 * (ru - S2 * rp)
         wp = 0.5 * (rp - S1 * ru)
@@ -164,6 +163,6 @@ def build_preconditioner(
         # S mix, then the deferred Lambda_2 row scaling
         yu = (wu + S2 * wp) / L2
         yp = (S1 * wu + wp) / L2c
-        return fft_t_real(torch.stack([yu, yp]))
+        return fft_t_real(join_state(yu, yp))
 
     return apply_eig

@@ -1,8 +1,9 @@
-"""The rank-4 Woodbury DIRECT solve in ParaDiag-diagonalized coordinates
-(PyTorch), and the host float64 residual oracle.
+"""Spectral-space solvers in ParaDiag-diagonalized coordinates (PyTorch):
+GMRES there (:func:`build_spectral_system`), the rank-4 Woodbury DIRECT
+solve, and the host float64 residual oracle.
 
 The counterpart of ``optimal_control_paradiag_tpu/paradiag/spectral.py``
-(half-spectrum, unsharded). With T = DST(space) o ifft(time) the all-at-once
+(unsharded). With T = DST(space) o ifft(time) the all-at-once
 operator becomes ``A_hat = D + B_hat``: D the exact per-(mode k, wavenumber j)
 2x2 circulant block, B_hat a correction that reads four time slices
 (u_{N-1}, u_{N-2}, p_0, p_1) and writes four time rows, with spatially
@@ -17,9 +18,14 @@ steps (one exact A_hat apply plus one Woodbury apply each) polish the
 working-precision rounding; :func:`build_polished_solver` adds
 physical-space defect correction on top of any such solve.
 
-The real state has a Hermitian time spectrum, so everything runs on the
-``K = N_t//2 + 1`` rfft bins: extractions pair conjugate bins (weight 2,
-1 on the self-conjugate ones), which makes G_j real.
+The real state has a Hermitian time spectrum, so the default Woodbury solve
+runs on the ``K = N_t//2 + 1`` rfft bins: extractions pair conjugate bins
+(weight 2, 1 on the self-conjugate ones), which makes G_j real. The
+full-spectrum solve (``half_spectrum=False``) and spectral GMRES work on all
+N_t bins with complex states.
+
+Every solve and transform takes states with leading batch axes,
+``(..., 2, N_t, n)``: time is dim -2 and the (u, p) blocks dim -3.
 """
 
 from __future__ import annotations
@@ -32,9 +38,13 @@ import numpy as np
 import torch
 
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
-from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator
+from optimal_control_paradiag_torch.krylov.gmres import gmres
+from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator, join_state, split_state
 from optimal_control_paradiag_torch.ops.transforms import (
     FourStepPlan,
+    dft_matrices,
+    time_fft_real_part_mm,
+    time_ifft_real_mm,
     time_irfft_conj_mm4,
     time_irfft_conj_packed,
     time_rfft_conj_mm4,
@@ -87,9 +97,14 @@ class _SpectralPlan:
         return a11, a22, tm, inv_det
 
 
-def _spectral_plan(op: AllAtOnceOperator) -> _SpectralPlan:
+def _spectral_plan(op: AllAtOnceOperator, mass_surrogate: bool = False) -> _SpectralPlan:
+    """``mass_surrogate=True``: on spaces the sine transform does not
+    diagonalize (2D consistent mass) use the tensor-part mass eigenvalues
+    (``P1Space.spectrum_tensor``); the plan then describes an approximation
+    of the operator, fit for building a preconditioner
+    (``paradiag/symmetric.py``), never for the exact solves."""
     sp = op.space
-    if not sp.diagonalizable:
+    if not sp.diagonalizable and not mass_surrogate:
         raise ValueError("spectral solver needs a sine-diagonalizable space")
     if not op.scaled:
         raise ValueError("spectral solver operates on the scaled system")
@@ -101,6 +116,8 @@ def _spectral_plan(op: AllAtOnceOperator) -> _SpectralPlan:
 
     e = circulant_eigs(N_t, op.dt, op.gamma)
     muM_raw, muK = sp.spectrum
+    if muM_raw is None:
+        muM_raw = sp.spectrum_tensor
     muM, muK = np.asarray(muM_raw, np.float64), np.asarray(muK, np.float64)
     L1 = np.asarray(e.Lambda1)[:, None]
     L2 = np.asarray(e.Lambda2)[:, None]
@@ -217,10 +234,11 @@ def make_halfspectrum_transforms(
     layout=None,
     time_transform: str = "fft",
 ) -> Tuple[Callable, Callable]:
-    """``(to_spectral, from_spectral)`` of the half-spectrum pipeline:
+    """``(to_spectral, from_spectral)`` of the half-spectrum pipeline, on
+    states with leading batch axes (time is dim -2):
 
-        xi = conj(rfft(dst(x), axis=1)) / N_t        (2, K, n) complex
-        x  = idst(irfft(conj(xi)) * N_t)             (2, N_t, n) real
+        xi = conj(rfft(dst(x), axis=-2)) / N_t       (..., 2, K, n) complex
+        x  = idst(irfft(conj(xi)) * N_t)             (..., 2, N_t, n) real
 
     ``time_transform``: 'fft' (two real rffts), 'fft2' (one packed complex
     FFT, ``ops.transforms.time_rfft_conj_packed``), 'dft' (the rfft/irfft
@@ -248,10 +266,10 @@ def make_halfspectrum_transforms(
 
         def to_spectral(x):
             s = sp.dst(x)
-            return torch.complex(torch.einsum("kt,ctn->ckn", Cf, s), torch.einsum("kt,ctn->ckn", Sf, s))
+            return torch.complex(torch.einsum("kt,...tn->...kn", Cf, s), torch.einsum("kt,...tn->...kn", Sf, s))
 
         def from_spectral(xi):
-            t = torch.einsum("tk,ckn->ctn", Ci, xi.real) + torch.einsum("tk,ckn->ctn", Si, xi.imag)
+            t = torch.einsum("tk,...kn->...tn", Ci, xi.real) + torch.einsum("tk,...kn->...tn", Si, xi.imag)
             return sp.idst(t).to(rdtype)
 
     elif time_transform == "mxu":
@@ -280,17 +298,176 @@ def make_halfspectrum_transforms(
         def to_spectral(x):
             s = sp.dst(x)
             # contiguous, as the packed transform returns it: the fused
-            # kernels read b_hat in that layout (cuFFT's rfft over dim 1
-            # returns a strided result)
-            return (torch.fft.rfft(s, dim=1).conj() * (1.0 / N_t)).contiguous()
+            # kernels read b_hat in that layout (cuFFT's rfft over the time
+            # axis returns a strided result)
+            return (torch.fft.rfft(s, dim=-2).conj() * (1.0 / N_t)).contiguous()
 
         def from_spectral(xi):
-            t = torch.fft.irfft(xi.conj(), n=N_t, dim=1) * float(N_t)
+            t = torch.fft.irfft(xi.conj(), n=N_t, dim=-2) * float(N_t)
             return sp.idst(t).to(rdtype)
 
     else:
         raise ValueError(f"unknown time_transform {time_transform!r}")
     return to_spectral, from_spectral
+
+
+def _d_inv(a11, a22, tm, inv_det):
+    """r -> D^{-1} r, the per-(k, j) 2x2 Cramer inverse of the circulant
+    block, on states ``(..., 2, K, n)``."""
+
+    def D_inv(r):
+        ru, rp = split_state(r)
+        return join_state((a22 * ru + tm * rp) * inv_det, (a11 * rp - tm * ru) * inv_det)
+
+    return D_inv
+
+
+def _extract4(phis, yu, yp):
+    """The four boundary time slices (u N-1, u N-2, p 0, p 1), each
+    ``(..., n)``: phase sums over the time (bin) axis, dim -2."""
+    phi_uNm1, phi_uNm2, phi_p0, phi_p1 = phis
+    return (
+        torch.sum(phi_uNm1[:, None] * yu, dim=-2),
+        torch.sum(phi_uNm2[:, None] * yu, dim=-2),
+        torch.sum(phi_p0[:, None] * yp, dim=-2),
+        torch.sum(phi_p1[:, None] * yp, dim=-2),
+    )
+
+
+def _inject4(psis, w):
+    """The rank-1 injections of the four row values ``w`` (each ``(..., n)``)
+    into u rows 0, 1 and p rows N-1, N-2: a state ``(..., 2, K, n)``."""
+    psi_u0, psi_u1, psi_pNm1, psi_pNm2 = psis
+    col = lambda v: v[..., None, :]
+    return join_state(
+        psi_u0[:, None] * col(w[0]) + psi_u1[:, None] * col(w[1]),
+        psi_pNm1[:, None] * col(w[2]) + psi_pNm2[:, None] * col(w[3]),
+    )
+
+
+def _a_hat(a11, a22, tm, pl: _SpectralPlan, extract, psis):
+    """xi -> (D + B_hat) xi: the circulant block plus the rank-4 boundary
+    rows, read through ``extract`` and written through ``psis``."""
+    m1, kap1, tm1, mk1 = pl.m1, pl.kap1, pl.tm1, pl.mk1
+
+    def A_hat(xi):
+        xu, xp = split_state(xi)
+        uNm1, uNm2, p0, p1 = extract(xu, xp)
+        rows = (
+            m1 * (2.0 * uNm1 - uNm2) - kap1 * uNm2 + 0.5 * tm1 * p0,
+            -mk1 * uNm1,
+            m1 * (2.0 * p0 - p1) - kap1 * p1 - 0.5 * tm1 * uNm1,
+            -mk1 * p0,
+        )
+        psi_u0, psi_u1, psi_pNm1, psi_pNm2 = psis
+        col = lambda v: v[..., None, :]
+        du = a11 * xu - tm * xp
+        dp = tm * xu + a22 * xp
+        du = du + psi_u0[:, None] * col(rows[0]) + psi_u1[:, None] * col(rows[1])
+        dp = dp + psi_pNm1[:, None] * col(rows[2]) + psi_pNm2[:, None] * col(rows[3])
+        return join_state(du, dp)
+
+    return A_hat
+
+
+def _full_phases(pl: _SpectralPlan):
+    """Extraction phases ``phi_i[k] = exp(-2 pi i i k / N_t)`` of slices
+    (N-1, N-2, 0, 1) and injection phases ``psi_i[k] = exp(2 pi i i k /
+    N_t) / N_t`` of rows (0, 1, N-1, N-2), all N_t bins, on the plan's
+    device."""
+    N_t = pl.N_t
+    k = np.arange(N_t)
+    phi = lambda i: to_device(np.exp(-2j * np.pi * i * k / N_t), pl.np_c, pl.device)
+    psi = lambda i: to_device(np.exp(2j * np.pi * i * k / N_t) / N_t, pl.np_c, pl.device)
+    return (
+        tuple(phi(i) for i in (N_t - 1, N_t - 2, 0, 1)),
+        tuple(psi(i) for i in (0, 1, N_t - 1, N_t - 2)),
+    )
+
+
+def _make_ops(op: AllAtOnceOperator, pl: _SpectralPlan, time_transform: str = "fft"):
+    """``(A_hat, D_inv, to_spectral, from_spectral)`` of the full-spectrum
+    system from a prepared plan, on states ``(..., 2, N_t, n)``:
+
+        to_spectral(x)    = dst(ifft(x, axis=-2))      complex
+        from_spectral(xi) = real(fft(idst(xi), axis=-2))
+
+    ``time_transform='dft'`` runs the time transforms as real matmuls
+    (``ops.transforms``); any other name, as in the JAX package, the FFT."""
+    sp = op.space
+    rdtype = pl.rdtype
+    cdtype = torch.complex64 if rdtype == torch.float32 else torch.complex128
+    a11, a22, tm, inv_det = pl.mode_diag()
+    phis, psis = _full_phases(pl)
+    extract = lambda xu, xp: _extract4(phis, xu, xp)
+    A_hat = _a_hat(a11, a22, tm, pl, extract, psis)
+    D_inv = _d_inv(a11, a22, tm, inv_det)
+    if time_transform == "dft":
+        C_t, S_t = dft_matrices(pl.N_t, rdtype, pl.device)
+
+        def to_spectral(x):
+            return sp.dst(time_ifft_real_mm(x.to(rdtype), C_t, S_t))
+
+        def from_spectral(xi):
+            return time_fft_real_part_mm(sp.idst(xi), C_t, S_t).to(rdtype)
+
+    else:
+
+        def to_spectral(x):
+            return sp.dst(torch.fft.ifft(x.to(cdtype), dim=-2))
+
+        def from_spectral(xi):
+            return torch.fft.fft(sp.idst(xi), dim=-2).real.to(rdtype)
+
+    return A_hat, D_inv, to_spectral, from_spectral
+
+
+def build_spectral_system(op: AllAtOnceOperator):
+    """``(A_hat, D_inv, to_spectral, from_spectral)`` of the scaled
+    all-at-once system in ParaDiag-diagonalized coordinates: GMRES on
+    ``A_hat xi = to_spectral(b)`` with ``D_inv`` as preconditioner, then
+    ``x = from_spectral(xi)``."""
+    require_full_fp32_matmul()
+    return _make_ops(op, _spectral_plan(op))
+
+
+def solve_spectral(
+    op: AllAtOnceOperator,
+    b: torch.Tensor,
+    *,
+    restart: int = 40,
+    rtol: float = 1e-5,
+    maxiter: int = 200,
+):
+    """The full spectral-space solve; returns ``(x, GmresResult)``."""
+    A_hat, D_inv, to_spectral, from_spectral = build_spectral_system(op)
+    res = gmres(A_hat, to_spectral(b), M=D_inv, restart=restart, rtol=rtol, maxiter=maxiter)
+    return from_spectral(res.x), res
+
+
+def _build_woodbury_full(op: AllAtOnceOperator, pl: _SpectralPlan, refine: int, time_transform: str):
+    """Full-spectrum Woodbury solve: all N_t bins of the complex spectral
+    state, complex capacity matrices (the pairing that makes them real
+    needs the half spectrum)."""
+    A_hat, D_inv, to_spectral, from_spectral = _make_ops(op, pl, time_transform=time_transform)
+    G_h = _capacity_matrices(pl)
+    G = [[to_device(G_h[:, a, b], pl.np_c, pl.device) for b in range(4)] for a in range(4)]
+    phis, psis = _full_phases(pl)
+
+    def wb_apply(r):
+        y = D_inv(r)
+        z = _extract4(phis, *split_state(y))
+        w = [sum(G[a][b] * z[b] for b in range(4)) for a in range(4)]
+        return y - D_inv(_inject4(psis, w))
+
+    def solve(b):
+        b_hat = to_spectral(b)
+        x = wb_apply(b_hat)
+        for _ in range(refine):
+            x = x + wb_apply(b_hat - A_hat(x))
+        return from_spectral(x)
+
+    return solve
 
 
 def _build_woodbury_half(
@@ -308,7 +485,6 @@ def _build_woodbury_half(
     to_spectral, from_spectral = make_halfspectrum_transforms(
         sp, N_t, rdtype, time_transform=time_transform
     )
-    m1, kap1, tm1, mk1 = pl.m1, pl.kap1, pl.tm1, pl.mk1
 
     k = np.arange(K)
     wgt = pairing_weights(N_t)
@@ -322,40 +498,19 @@ def _build_woodbury_half(
     G = [[to_device(G_h[:, a, b], rdtype, dev) for b in range(4)] for a in range(4)]
     a11, a22, tm, inv_det = pl.mode_diag(K)
 
-    def D_inv(r):
-        ru, rp = r[0], r[1]
-        yu = (a22 * ru + tm * rp) * inv_det
-        yp = (a11 * rp - tm * ru) * inv_det
-        return torch.stack([yu, yp])
+    D_inv = _d_inv(a11, a22, tm, inv_det)
 
     def extract(yu, yp):
-        return (
-            torch.sum(phi_uNm1[:, None] * yu, dim=0).real,
-            torch.sum(phi_uNm2[:, None] * yu, dim=0).real,
-            torch.sum(phi_p0[:, None] * yp, dim=0).real,
-            torch.sum(phi_p1[:, None] * yp, dim=0).real,
-        )
+        return tuple(e.real for e in _extract4((phi_uNm1, phi_uNm2, phi_p0, phi_p1), yu, yp))
 
-    def A_hat(xi):
-        xu, xp = xi[0], xi[1]
-        du = a11 * xu - tm * xp
-        dp = tm * xu + a22 * xp
-        uNm1, uNm2, p0, p1 = extract(xu, xp)
-        out_u0 = m1 * (2.0 * uNm1 - uNm2) - kap1 * uNm2 + 0.5 * tm1 * p0
-        out_u1 = -mk1 * uNm1
-        out_pN1 = m1 * (2.0 * p0 - p1) - kap1 * p1 - 0.5 * tm1 * uNm1
-        out_pN2 = -mk1 * p0
-        du = du + psi_u0[:, None] * out_u0[None, :] + psi_u1[:, None] * out_u1[None, :]
-        dp = dp + psi_pNm1[:, None] * out_pN1[None, :] + psi_pNm2[:, None] * out_pN2[None, :]
-        return torch.stack([du, dp])
+    psis = (psi_u0, psi_u1, psi_pNm1, psi_pNm2)
+    A_hat = _a_hat(a11, a22, tm, pl, extract, psis)
 
     def wb_apply(r):
         y = D_inv(r)
-        z = extract(y[0], y[1])
+        z = extract(*split_state(y))
         w = [sum(G[a][b] * z[b] for b in range(4)) for a in range(4)]
-        corr_u = psi_u0[:, None] * w[0][None, :] + psi_u1[:, None] * w[1][None, :]
-        corr_p = psi_pNm1[:, None] * w[2][None, :] + psi_pNm2[:, None] * w[3][None, :]
-        return y - D_inv(torch.stack([corr_u, corr_p]))
+        return y - D_inv(_inject4(psis, w))
 
     def solve(b):
         b_hat = to_spectral(b)
@@ -377,20 +532,21 @@ def build_woodbury_solver(
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Direct all-at-once solver ``b -> x`` via the rank-4 Woodbury identity
     in ParaDiag-diagonalized coordinates, on the half spectrum, in plain
-    PyTorch. ``time_transform`` ('fft', 'fft2', 'dft' or 'mxu'; see
-    :func:`make_halfspectrum_transforms`) defaults to the packed FFT
-    ('fft2')."""
+    PyTorch, on states ``(..., 2, N_t, n)``. ``time_transform`` ('fft',
+    'fft2', 'dft' or 'mxu'; see :func:`make_halfspectrum_transforms`)
+    defaults to the packed FFT ('fft2'). ``half_spectrum=False`` solves on
+    all N_t bins instead (:func:`_build_woodbury_full`; 'dft', or the FFT
+    for 'fft'/'fft2', as in the JAX package)."""
     require_full_fp32_matmul()
     if layout is not None:
         raise NotImplementedError(
             "the sharded Woodbury solve is not ported yet (ROADMAP Queue A item 14)"
         )
-    if half_spectrum is False:
-        raise NotImplementedError(
-            "the full-spectrum Woodbury solve is not ported yet (ROADMAP Queue A "
-            "item 2); the half-spectrum solve is the default"
-        )
     time_transform = "fft2" if time_transform is None else time_transform
+    if half_spectrum is False:
+        if time_transform == "mxu":
+            raise ValueError("time_transform='mxu' is implemented for the half-spectrum pipeline (the default)")
+        return _build_woodbury_full(op, _spectral_plan(op), refine, time_transform)
     return _build_woodbury_half(op, _spectral_plan(op), refine, time_transform=time_transform)
 
 

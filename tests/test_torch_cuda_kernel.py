@@ -293,3 +293,81 @@ def test_heat_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="refine"):
         ch.fused_heat(torch.zeros(2, 6, 11, dtype=torch.complex128, device=cuda), c, -1)
     assert ch.fused_heat(torch.zeros(2, 6, 11, dtype=torch.complex128, device=cuda), c, 0).abs().max().item() == 0.0
+
+
+# ---------------------------------------------------------------------------
+# The batch axis: B lanes in one launch (blockIdx.y), constants shared.
+
+def _batch_case(cuda, family, kw, dtype, B=3):
+    """Packed constants and B distinct kernel inputs (B, 2, K, n): the main
+    path's input of the problem and seeded noise of its scale."""
+    prob = (WaveControlProblem if family == "wave" else HeatControlProblem)(ProblemConfig(**kw, dtype=dtype), device=cuda)
+    c = cw.pack_constants(prob.operator) if family == "wave" else ch.pack_heat_constants(prob)
+    b0 = time_rfft_conj_packed(prob.space.dst(prob.rhs), kw["N_t"])
+    rng = np.random.default_rng(11)
+    noise = torch.from_numpy(rng.standard_normal((B - 1,) + tuple(b0.shape)) + 1j * rng.standard_normal(
+        (B - 1,) + tuple(b0.shape))).to(b0.dtype).to(cuda)
+    return c, torch.cat([b0[None], b0.abs().max() * noise]).contiguous()
+
+
+BATCH_CASES = [
+    (dict(N_x=40, N_t=24), torch.float64, 1e-12),
+    (dict(N_x=9, N_t=12, dim=2, mass="lumped"), torch.float64, 1e-12),
+    (dict(N_x=2048, N_t=1024), torch.float32, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["slab", "streaming"])
+@pytest.mark.parametrize("family", ["wave", "heat"])
+@pytest.mark.parametrize("kw,dtype,tol", BATCH_CASES, ids=["40x24-f64", "2d-lumped-f64", "headline-f32"])
+def test_batched_launch_is_bitwise_per_lane(cuda, kw, dtype, tol, family, kind):
+    """B1 and B2, slab and streaming, on a B = 3 batch: ONE launch, each
+    lane bitwise equal to a launch on that lane alone, and the batch equal
+    to the batched twin within the single launch's tolerance."""
+    c, bs = _batch_case(cuda, family, kw, dtype)
+    if family == "wave":
+        fn = cw.fused_woodbury if kind == "slab" else cw._fused_woodbury_streaming
+        twin, counter = cw.fused_woodbury_reference, cw.fused_woodbury
+        tol = tol or 2e-4
+    else:
+        fn = ch.fused_heat if kind == "slab" else ch._fused_heat_streaming
+        twin, counter = ch.fused_heat_reference, ch.fused_heat
+        tol = tol or HEAT_TOL_F32
+    before = counter.launches
+    xs = fn(bs, c, 1)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert xs.shape == bs.shape and xs.dtype == bs.dtype
+    for i in range(bs.shape[0]):
+        assert torch.equal(xs[i], fn(bs[i].contiguous(), c, 1))
+    ref = twin(bs, c, 1)
+    for i in range(bs.shape[0]):
+        assert _rel(xs[i], ref[i]) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["wave", "heat"])
+def test_batch_sizes_refused(cuda, family):
+    """B = 0 and B > 65535 (the grid's y axis) are refused before any
+    launch, with a clear error; the C launchers refuse them too."""
+    kw = dict(N_x=3, N_t=3)  # n = 2, K = 2
+    c, bs = _batch_case(cuda, family, kw, torch.float64, B=2)
+    fn, counter = (cw.fused_woodbury, cw.fused_woodbury) if family == "wave" else (ch.fused_heat, ch.fused_heat)
+    before = counter.launches
+    for B in (0, 65536):
+        with pytest.raises(ValueError, match="1 to 65535 lanes"):
+            fn(torch.zeros((B,) + tuple(bs.shape[1:]), dtype=bs.dtype, device=cuda), c, 1)
+    assert counter.launches == before
+    if family == "wave":
+        lib = cw._kernel_library()
+        x = torch.empty_like(bs)
+        for B in (0, 65536):
+            err = lib.woodbury_streaming_f64(bs.data_ptr(), x.data_ptr(), c.a11r.data_ptr(), c.a11i.data_ptr(),
+                                             c.invdet.data_ptr(), c.colc.data_ptr(), c.gc.data_ptr(),
+                                             c.phases.data_ptr(), 2, 2, B, 1, torch.cuda.current_device(),
+                                             torch.cuda.current_stream().cuda_stream)
+            assert err != 0
+    x = fn(bs, c, 1)  # a good launch after the refusals
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 and torch.isfinite(x.abs()).all()

@@ -118,3 +118,45 @@ def test_kernels_between_two_rffts_on_card(cuda, family):
         build = lambda pack: ch.build_cuda_heat_solver(prob, pack_fft=pack)
     b = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 32, 63))).to(cuda)
     _close(build(True)(b), build(False)(b), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_batched_solves_on_card_match_cpu(cuda, dtype):
+    """The batched wave solve (``make_batched_solver_fn``, one B1 launch)
+    and the heat builders on a (3, 2, N_t, n) batch (one B2 launch), on the
+    card against the same solves on the CPU: float64 1e-11, float32 1e-5."""
+    from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, SolverConfig, WaveControlProblem
+    from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
+    from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
+
+    tol = 1e-11 if dtype == torch.float64 else 1e-5
+    cfg = ProblemConfig(N_x=64, N_t=32, dtype=dtype)
+    bs = torch.from_numpy(np.random.default_rng(6).standard_normal((3, 2, 32, 63))).to(dtype)
+    solver = SolverConfig(method="woodbury", use_pallas=True)
+    before = cw.fused_woodbury.launches
+    card, _ = WaveControlProblem(cfg, device=cuda).make_batched_solver_fn(solver)(bs.to(cuda))
+    assert cw.fused_woodbury.launches == before + 1
+    _close(WaveControlProblem(cfg, device="cpu").make_batched_solver_fn(solver)(bs)[0], card, tol)
+    before = ch.fused_heat.launches
+    card = ch.build_cuda_heat_solver(HeatControlProblem(cfg, device=cuda))(bs.to(cuda))
+    assert ch.fused_heat.launches == before + 1
+    _close(ch.build_cuda_heat_solver(HeatControlProblem(cfg, device="cpu"))(bs), card, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["gmres", "spectral", "minres", "direct"])
+def test_batched_iterative_and_direct_on_card_match_cpu(cuda, method):
+    """The other batched methods (float64) on the card against the CPU: the
+    same per-lane iterations, x to 1e-10."""
+    from optimal_control_paradiag_torch import ProblemConfig, SolverConfig, WaveControlProblem
+
+    cfg = ProblemConfig(N_x=24, N_t=16)
+    solver = SolverConfig(method=method, rtol=1e-10)
+    cpu = WaveControlProblem(cfg, device="cpu")
+    bs = torch.stack([cpu.rhs, -0.5 * cpu.rhs, torch.roll(cpu.rhs, 1, dims=-2)])
+    xc, rc = cpu.make_batched_solver_fn(solver)(bs)
+    xg, rg = WaveControlProblem(cfg, device=cuda).make_batched_solver_fn(solver)(bs.to(cuda))
+    _close(xc, xg, 1e-10)
+    if rc is not None:
+        assert torch.equal(torch.as_tensor(rc.iterations).cpu(), torch.as_tensor(rg.iterations).cpu())

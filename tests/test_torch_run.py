@@ -6,7 +6,8 @@ Tolerances: the CLI records' error metrics 1e-10 absolute and the
 ``solution.npz`` arrays 1e-10 relative max-abs; residual histories to rtol
 1e-8 with an absolute floor of 1e-13 of the initial residual (a restart
 starts from the true residual, whose cancellation amplifies last-bit
-differences; tests/test_torch_gmres.py); checkpoints and the unstructured
+differences; tests/test_torch_gmres.py), 1e-8 for MINRES
+(tests/test_torch_batched.py); checkpoints and the unstructured
 VTK writer exact; the structured VTK files' numbers 1e-10 relative to the
 field's largest value, their other lines equal."""
 
@@ -52,10 +53,10 @@ def _close(ref, got, tol):
     assert np.abs(ref - got).max() <= tol * np.abs(ref).max()
 
 
-def _same_history(hj, ht):
+def _same_history(hj, ht, floor=1e-13):
     hj, ht = np.asarray(hj, np.float64), np.asarray(ht, np.float64)
     assert hj.shape == ht.shape
-    np.testing.assert_allclose(ht, hj, rtol=1e-8, atol=1e-13 * hj[0])
+    np.testing.assert_allclose(ht, hj, rtol=1e-8, atol=floor * hj[0])
 
 
 def _both_cli(tmp_path, argv):
@@ -97,6 +98,43 @@ def test_cli_heat_matches_jax(tmp_path):
     for k in ("u", "p"):
         assert zt[k].dtype == np.float64
         _close(zj[k], zt[k], 1e-11)
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["--method", "minres", "--rtol", "1e-10"],
+        ["--method", "spectral", "--rtol", "1e-10"],
+        ["--method", "direct"],
+        ["--model", "heat", "--method", "minres", "--rtol", "1e-10"],
+        ["--model", "heat", "--method", "direct"],
+    ],
+    ids=["minres", "spectral", "direct", "heat-minres", "heat-direct"],
+)
+def test_cli_methods_match_jax(tmp_path, argv):
+    """--method minres / spectral / direct through both CLIs: the same
+    record keys, iterations and error metrics, and the same files."""
+    rj, rt, dj, dt = _both_cli(tmp_path, argv + ["--nx", "10", "--nt", "11"])
+    assert set(rt) == set(rj) and set(rt["config"]) == set(rj["config"])
+    assert rt["iterations"] == rj["iterations"]
+    assert (rt["iterations"] is None) == (argv[-1] == "direct")
+    if "heat" in argv:
+        assert rt["relative_residual"] < 1e-9 and rj["relative_residual"] < 1e-9
+        assert abs(rt["error_vs_analytic"] - rj["error_vs_analytic"]) <= 1e-10
+        zj, zt = np.load(dj / "heat_solution.npz"), np.load(dt / "heat_solution.npz")
+        _close(zj["u"], zt["u"], 1e-9)
+        return
+    assert rt["converged"] and rj["converged"]
+    assert rt["residual_norm_true"] < 1e-8 and rj["residual_norm_true"] < 1e-8
+    assert abs(rt["error_aligned_metric"] - rj["error_aligned_metric"]) <= 1e-10
+    assert abs(rt["error_reference_metric"] - rj["error_reference_metric"]) <= 1e-10
+    zj, zt = np.load(dj / "solution.npz"), np.load(dt / "solution.npz")
+    _close(zj["u_out"], zt["u_out"], 1e-10)
+    assert (dt / "residuals.out").exists() == (dj / "residuals.out").exists() == (rt["iterations"] is not None)
+    if rt["iterations"] is not None:
+        # MINRES: the floor of tests/test_torch_batched.py (MINRES_HISTORY_FLOOR)
+        floor = 1e-8 if "minres" in argv else 1e-13
+        _same_history(np.loadtxt(dj / "residuals.out"), np.loadtxt(dt / "residuals.out"), floor)
 
 
 def test_cli_heat_gmres_and_float32(tmp_path):
@@ -177,8 +215,8 @@ def test_cli_refusals(argv, match, tmp_path):
 
 
 def test_cli_methods_not_ported_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_run.main(["--method", "minres", "--nx", "8", "--nt", "9", "--platform", "cpu", "--out", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        t_run.main(["--pc-variant", "block", "--nx", "8", "--nt", "9", "--platform", "cpu", "--out", str(tmp_path)])
 
 
 def test_cli_platform_auto_needs_the_card(tmp_path):

@@ -107,11 +107,7 @@ def test_residual_oracle_matches_jax(kw):
         _assert_close(j_sp._np_dst_axis(g, ax), t_sp._np_dst_axis(g, ax), 1e-12)
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [dict(layout=object()), dict(half_spectrum=False)],
-    ids=["layout", "full-spectrum"],
-)
+@pytest.mark.parametrize("kw", [dict(layout=object())], ids=["layout"])
 def test_unported_solver_options_raise(kw):
     _, top = _ops(CASES[0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -147,13 +147,11 @@ def test_default_device_is_cuda():
     "cls,cfg,solver",
     [
         (WaveControlProblem, ProblemConfig(N_x=6, N_t=6, dim=2), SolverConfig()),
-        (WaveControlProblem, reference_1d_default(), SolverConfig(method="minres")),
-        (WaveControlProblem, reference_1d_default(), SolverConfig(method="spectral")),
-        (WaveControlProblem, reference_1d_default(), SolverConfig(method="direct")),
         (WaveControlProblem, reference_1d_default(), SolverConfig(inner="cocg_jacobi")),
         (WaveControlProblem, ProblemConfig(N_x=6, N_t=6, dim=2), SolverConfig(method="woodbury")),
+        (WaveControlProblem, reference_1d_default(), SolverConfig(pc_variant="block")),
     ],
-    ids=["gmres-2d-consistent", "minres", "spectral", "direct", "gmres-cocg-jacobi", "2d-consistent"],
+    ids=["gmres-2d-consistent", "gmres-cocg-jacobi", "2d-consistent", "gmres-block"],
 )
 def test_unported_paths_raise(cls, cfg, solver):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
