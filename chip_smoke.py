@@ -112,7 +112,34 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     dense build, LU and solve times;
 24. batched GMRES at the reference shape (float64, B = 4): per-lane
     iterations equal to the sequential solves', and one lock-step Arnoldi
-    step synchronising the host as often as one step of a single solve.
+    step synchronising the host as often as one step of a single solve;
+25. the 2D consistent mass at the JAX bench's shape (N_x = 192, N_t = 128,
+    float32, 9,339,136 unknowns) through ``WaveControlProblem(...).solve(
+    SolverConfig(method='woodbury'))``, the tensor GMRES: at most 3
+    iterations, float64 oracle <= 5e-4 (the JAX bench: 1 and 8.52e-5),
+    device and host wall time, peak memory;
+26. the same for ``HeatControlProblem``: at most 3 iterations, oracle
+    <= 2e-3 (the JAX bench: 1 and 5.16e-4);
+27. GMRES with ``inner='auto'`` (blockline) on the 2D consistent mass at
+    N_x = N_t = 64, float64, rtol 1e-8: at most 320 iterations, residual
+    / ||b|| < 1e-6, with the host factor time, the factors' bytes, one
+    preconditioner apply and the solve timed; the SMW solve over blockline
+    (``method='woodbury', pc_variant='blockline'``) at N = 16: at most 22
+    capacity iterations, residual < 1e-8;
+28. card against CPU, float64: the auto route at N = 16 (iterations within
+    1, u 1e-8 apart), tensor GMRES at N = 32 (the same iterations), 'block'
+    against 'blockline' at N = 16 (1e-6) and 'blockdense' against
+    'blockline' at N_x = 7, N_t = 8 (1e-9) on the card;
+29. the JAX bench's unstructured problem (a perturbed N = 32 triangle mesh,
+    n = 961, N_t = 32, float32, ``pc_variant='blockband'``, restart 80):
+    converged, oracle <= 5e-4 (the JAX bench: 69 iterations, 2.07e-4), RCM
+    bandwidth 31, timed; the blockdense auto route on a small mesh, card
+    against CPU (float64): the same iterations;
+30. the CLI: ``--dim 2`` at the reference defaults (N_x = 80, N_t = 81,
+    float64, blockline) and ``--mesh-file`` on an .npz mesh written to a
+    temporary directory: converged, iterations and seconds printed;
+31. batched tensor GMRES (N_x = N_t = 32, float64, B = 3): per-lane
+    iterations equal to the sequential solves', each lane within 1e-10.
 
 It prints one JSON line per timing, then the kernels line, and last the
 device line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1210,6 +1237,271 @@ def krylov_direct_phases(torch, smi, flush):
     return None
 
 
+# The spaces the sine transform does not diagonalize (phases 25-31). The JAX
+# bench's shapes and its own records (artifacts/bench_suite.json: iterations
+# and residuals only, never a time): stage_consistent_2d and
+# stage_heat_2d_consistent, 1 iteration each, rel_f64 8.52e-5 and 5.16e-4;
+# stage_unstructured, 69 iterations, 2.07e-4, RCM bandwidth 31.
+CONSISTENT_2D = dict(N_x=192, N_t=128, dim=2, mass="consistent")  # 9,339,136 unknowns
+CONSISTENT_MAX_ITERS = 3
+CONSISTENT_WAVE_MAX_REL = 5e-4
+CONSISTENT_HEAT_MAX_REL = 2e-3
+BLOCKLINE_AUTO = dict(N_x=64, N_t=64, dim=2)  # tests/test_blockline.py:143-161
+BLOCKLINE_MAX_ITERS = 320
+BLOCKLINE_MAX_REL = 1e-6
+SMW_CAP_MAX_ITERS = 22  # tests/test_woodbury2d.py:45-82, N = 16, cap_rtol 1e-10
+SMW_MAX_REL = 1e-8
+CARD_VS_CPU_U_TOL = 1e-8  # the auto route at N = 16, float64, relative max-abs
+BLOCK_VS_BLOCKLINE_TOL = 1e-6  # tests/test_blockline.py:113-127
+BLOCKDENSE_VS_BLOCKLINE_TOL = 1e-9  # tests/test_blockline.py:53-66
+UNSTRUCTURED_N, UNSTRUCTURED_N_T, UNSTRUCTURED_AMP = 32, 32, 0.18  # bench.py:493-504
+UNSTRUCTURED_SOLVER = dict(rtol=1e-5, pc_variant="blockband", restart=80, maxiter=160)
+UNSTRUCTURED_MAX_REL = 5e-4
+UNSTRUCTURED_BANDWIDTH = 31
+BATCHED_TENSOR_B, BATCHED_TENSOR_TOL = 3, 1e-10
+
+
+def perturbed_mesh(N: int, amp: float, seed: int):
+    """The JAX bench's perturbed unit square (bench.py:493-498): interior
+    nodes moved by ``default_rng(seed).uniform(+-amp/N)``."""
+    import numpy as np
+
+    from optimal_control_paradiag_torch import native
+    from optimal_control_paradiag_torch.fem.general import boundary_nodes
+
+    pts, tris = native.unit_square_mesh(N, diagonal="left")
+    bnd = boundary_nodes(pts.shape[0], tris)
+    pts = pts.copy()
+    pts[~bnd] += np.random.default_rng(seed).uniform(-amp / N, amp / N, size=pts[~bnd].shape)
+    return pts, tris
+
+
+def nondiagonal_phases(torch, smi, flush):
+    """Phases 25-31: the spaces the sine transform does not diagonalize.
+    25-26: the wave and heat 2D consistent-mass direct solves at the JAX
+    bench's shape (N_x = 192, N_t = 128, float32; tensor GMRES: <= 3
+    iterations, float64 oracle <= 5e-4 / 2e-3), timed; 27: the GMRES auto
+    route (blockline) at N_x = N_t = 64, float64, rtol 1e-8 (<= 320
+    iterations, residual < 1e-6) with the host factor time, the factors'
+    bytes and one apply timed, and the SMW solve over blockline at N = 16
+    (<= 22 capacity iterations, residual < 1e-8); 28: card against CPU in
+    float64 (auto route, tensor GMRES, block against blockline, blockdense
+    against blockline); 29: the JAX bench's unstructured problem (n = 961,
+    N_t = 32, float32, blockband GMRES: converged, oracle <= 5e-4, RCM
+    bandwidth 31), then the blockdense auto route card against CPU; 30: the
+    CLI's --dim 2 at its defaults (N_x = 80, N_t = 81, blockline) and
+    --mesh-file; 31: batched tensor GMRES (N = 32, B = 3): per-lane
+    iterations and solutions as the sequential ones. Prints one JSON line
+    per result; returns None, or what failed."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, SolverConfig, WaveControlProblem
+    from optimal_control_paradiag_torch.fem.general import make_general_space
+    from optimal_control_paradiag_torch.krylov.gmres import gmres
+    from optimal_control_paradiag_torch.paradiag.blockband import band_profile, blockband_entries
+    from optimal_control_paradiag_torch.paradiag.blockline import blockline_entries
+    from optimal_control_paradiag_torch.paradiag.pc import build_preconditioner
+    from optimal_control_paradiag_torch.paradiag.spectral import _capacity_CW, _spectral_plan
+    from optimal_control_paradiag_torch.paradiag.woodbury2d import build_tensor_gmres_solver, time_corner_maps
+    from optimal_control_paradiag_torch.run import main as cli
+
+    f32, f64 = torch.float32, torch.float64
+
+    def first(fn):
+        """``fn()`` and its host wall seconds, to the card's last op."""
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def rel_b(prob, sol):
+        scale = (prob.config.gamma ** 0.5) if prob.config.scaled else 1.0
+        r = prob.operator.matvec(torch.stack([sol.u * scale, sol.p])) - prob.rhs
+        return float(torch.linalg.norm(r.reshape(-1)) / torch.linalg.norm(prob.rhs.reshape(-1)))
+
+    # 25. wave 2D consistent mass at the JAX bench's shape: the tensor GMRES
+    torch.cuda.reset_peak_memory_stats()
+    wp = WaveControlProblem(ProblemConfig(**CONSISTENT_2D, dtype=f32), device=DEVICE)
+    wcfg = SolverConfig(method="woodbury")
+    sol, first_s = first(lambda: wp.solve(wcfg))
+    rel = wp.relative_residual_f64(sol)
+    # the route's own settings (rtol 1e-5 in float32, maxiter 60), with its record
+    (_, res), _ = first(lambda: build_tensor_gmres_solver(wp.operator, rtol=1e-5, with_result=True)(wp.rhs))
+    its, conv = int(res.iterations), bool(res.converged)
+    run = wp.make_solver_fn(wcfg)
+    ms = timed(torch, smi, flush, "consistent_2d_woodbury_solve", lambda: run(wp.rhs), LONG_RUNS, LONG_WARMUP)
+    wall, _, _ = wall_ms(torch, lambda: run(wp.rhs), LONG_RUNS, LONG_WARMUP)
+    print(json.dumps({"phase": "consistent_2d_woodbury", **CONSISTENT_2D, "dtype": "float32",
+                      "unknowns": wp.operator.size, "iterations": its, "converged": conv, "relative_residual_f64": rel,
+                      "jax_bench_iterations": 1, "jax_bench_rel_f64": 8.52e-5, "gate_iterations": CONSISTENT_MAX_ITERS,
+                      "gate": CONSISTENT_WAVE_MAX_REL, "first_solve_s": first_s, "ms": ms, "host_wall_ms": wall,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi}), flush=True)
+    if not (conv and its <= CONSISTENT_MAX_ITERS and rel <= CONSISTENT_WAVE_MAX_REL):
+        return f"wave 2D consistent: converged {conv} in {its} iterations, residual {rel:.3e}"
+    del wp, sol, run, res
+
+    # 26. heat 2D consistent mass, the same shape
+    hp = HeatControlProblem(ProblemConfig(**CONSISTENT_2D, dtype=f32), device=DEVICE)
+    hcfg = SolverConfig(method="woodbury")
+    sol, first_s = first(lambda: hp.solve(hcfg))
+    its, conv, rel = int(sol.result.iterations), bool(sol.result.converged), hp.relative_residual_f64(sol)
+    ms = timed(torch, smi, flush, "heat_2d_consistent_solve", lambda: hp.solve(hcfg), LONG_RUNS, LONG_WARMUP)
+    wall, _, _ = wall_ms(torch, lambda: hp.solve(hcfg), LONG_RUNS, LONG_WARMUP)
+    print(json.dumps({"phase": "heat_2d_consistent", **CONSISTENT_2D, "dtype": "float32", "iterations": its,
+                      "converged": conv, "relative_residual_f64": rel, "jax_bench_iterations": 1,
+                      "jax_bench_rel_f64": 5.16e-4, "gate_iterations": CONSISTENT_MAX_ITERS,
+                      "gate": CONSISTENT_HEAT_MAX_REL, "first_solve_s": first_s, "ms": ms, "host_wall_ms": wall,
+                      "card": smi}), flush=True)
+    if not (conv and its <= CONSISTENT_MAX_ITERS and rel <= CONSISTENT_HEAT_MAX_REL):
+        return f"heat 2D consistent: converged {conv} in {its} iterations, residual {rel:.3e}"
+    del hp, sol
+
+    # 27. the GMRES auto route (blockline) at N = 64, float64; the SMW at N = 16
+    bp = WaveControlProblem(ProblemConfig(**BLOCKLINE_AUTO), device=DEVICE)
+    op = bp.operator
+    pc, factor_s = first(lambda: build_preconditioner(op, variant="blockline"))
+    r = torch.randn(op.shape, dtype=f64, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(0))
+    apply_ms = timed(torch, smi, flush, "blockline_apply", lambda: pc(r), 5, 2, **BLOCKLINE_AUTO)
+    apply_wall, _, _ = wall_ms(torch, lambda: pc(r), 5, 2)
+    del pc
+    gcfg = SolverConfig(rtol=1e-8)
+    run, route_factor_s = first(lambda: bp.make_solver_fn(gcfg))
+    (x, res), solve_s = first(lambda: run(bp.rhs))
+    its, conv = int(res.iterations), bool(res.converged)
+    relb = float(torch.linalg.norm((op.matvec(x) - bp.rhs).reshape(-1)) / torch.linalg.norm(bp.rhs.reshape(-1)))
+    print(json.dumps({"phase": "blockline_auto_route", **BLOCKLINE_AUTO, "dtype": "float64", "rtol": 1e-8,
+                      "iterations": its, "converged": conv, "residual_over_b": relb, "gate_iterations": BLOCKLINE_MAX_ITERS,
+                      "gate": BLOCKLINE_MAX_REL, "factor_host_s": factor_s, "route_build_s": route_factor_s,
+                      "factor_bytes": blockline_entries(op.N_t, bp.space.n1d) * 16, "apply_ms": apply_ms,
+                      "apply_host_wall_ms": apply_wall, "line_steps_per_apply": 2 * bp.space.n1d, "solve_s": solve_s,
+                      "card": smi}), flush=True)
+    if not (conv and its <= BLOCKLINE_MAX_ITERS and relb < BLOCKLINE_MAX_REL):
+        return f"blockline auto route: converged {conv} in {its} iterations, residual {relb:.3e}"
+    del bp, op, run, x, res
+    sp16 = WaveControlProblem(ProblemConfig(N_x=16, N_t=16, dim=2), device=DEVICE)
+    ssol, smw_s = first(lambda: sp16.solve(SolverConfig(method="woodbury", pc_variant="blockline", rtol=1e-10)))
+    srel = rel_b(sp16, ssol)
+    op = sp16.operator
+    Pinv = build_preconditioner(op, variant="blockline")
+    phi_star, R, psi = time_corner_maps(op)
+    C, W = _capacity_CW(_spectral_plan(op, mass_surrogate=True))
+    Minv = torch.from_numpy(np.linalg.inv(np.eye(4)[None] + C @ W).real).to(DEVICE)
+    cres = gmres(lambda q: q + R(phi_star(Pinv(psi(q)))), R(phi_star(Pinv(sp16.rhs))),
+                 M=lambda q: sp16.space.idst(torch.einsum("nab,bn->an", Minv, sp16.space.dst(q))),
+                 restart=100, rtol=1e-10, maxiter=100)
+    cits, cconv = int(cres.iterations), bool(cres.converged)
+    print(json.dumps({"phase": "smw_blockline", "N_x": 16, "N_t": 16, "dtype": "float64", "cap_rtol": 1e-10,
+                      "capacity_iterations": cits, "converged": cconv, "residual_over_b": srel,
+                      "gate_iterations": SMW_CAP_MAX_ITERS, "gate": SMW_MAX_REL, "first_solve_s": smw_s}), flush=True)
+    if not (cconv and cits <= SMW_CAP_MAX_ITERS and srel < SMW_MAX_REL):
+        return f"SMW over blockline: {cits} capacity iterations (converged {cconv}), residual {srel:.3e}"
+    del sp16, ssol, Pinv
+
+    # 28. card against CPU, float64
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        p = WaveControlProblem(ProblemConfig(N_x=16, N_t=16, dim=2), device=dev)
+        s = p.solve(SolverConfig(rtol=1e-8))
+        q = WaveControlProblem(ProblemConfig(N_x=32, N_t=32, dim=2), device=dev)
+        _, tres = build_tensor_gmres_solver(q.operator, rtol=1e-10, with_result=True)(q.rhs)
+        out[dev] = (int(s.result.iterations), s.u.cpu(), int(tres.iterations))
+    du = rel_err(torch, out[DEVICE][1], out["cpu"][1])
+    p = WaveControlProblem(ProblemConfig(N_x=16, N_t=16, dim=2), device=DEVICE)
+    rr = torch.randn(p.operator.shape, dtype=f64, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(2))
+    y_line = build_preconditioner(p.operator, variant="blockline")(rr)
+    y_block = build_preconditioner(p.operator, variant="block", inner_tol=1e-12, inner_maxiter=300)(rr)
+    d_block = rel_err(torch, y_block, y_line)
+    p = WaveControlProblem(ProblemConfig(N_x=7, N_t=8, dim=2), device=DEVICE)
+    rr = torch.randn(p.operator.shape, dtype=f64, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(0))
+    d_dense = rel_err(torch, build_preconditioner(p.operator, variant="blockdense")(rr),
+                      build_preconditioner(p.operator, variant="blockline")(rr))
+    print(json.dumps({"phase": "nondiagonal_card_vs_cpu", "dtype": "float64",
+                      "auto_route_N16_iterations": [out[DEVICE][0], out["cpu"][0]], "auto_route_u_rel": du,
+                      "tensor_gmres_N32_iterations": [out[DEVICE][2], out["cpu"][2]],
+                      "block_vs_blockline_N16": d_block, "blockdense_vs_blockline_7x8": d_dense,
+                      "tols": [CARD_VS_CPU_U_TOL, BLOCK_VS_BLOCKLINE_TOL, BLOCKDENSE_VS_BLOCKLINE_TOL]}), flush=True)
+    if not (abs(out[DEVICE][0] - out["cpu"][0]) <= 1 and du <= CARD_VS_CPU_U_TOL and out[DEVICE][2] == out["cpu"][2]
+            and d_block <= BLOCK_VS_BLOCKLINE_TOL and d_dense <= BLOCKDENSE_VS_BLOCKLINE_TOL):
+        return "2D consistent card vs CPU: see the nondiagonal_card_vs_cpu line"
+
+    # 29. the JAX bench's unstructured problem: blockband GMRES, float32
+    pts, tris = perturbed_mesh(UNSTRUCTURED_N, UNSTRUCTURED_AMP, 0)
+    usp = make_general_space(pts, tris, dtype=f32, device=DEVICE)
+    up = WaveControlProblem(ProblemConfig(N_x=UNSTRUCTURED_N, N_t=UNSTRUCTURED_N_T, dim=2, dtype=f32), device=DEVICE,
+                            space=usp)
+    ucfg = SolverConfig(**UNSTRUCTURED_SOLVER)
+    sol, first_s = first(lambda: up.solve(ucfg))
+    its, conv, rel = int(sol.result.iterations), bool(sol.result.converged), up.relative_residual_f64(sol)
+    _, bw = band_profile(usp)
+    run = up.make_solver_fn(ucfg)
+    ms = timed(torch, smi, flush, "unstructured_blockband_solve", lambda: run(up.rhs), 3, 1)
+    wall, _, _ = wall_ms(torch, lambda: run(up.rhs), 3, 1)
+    pc = build_preconditioner(up.operator, variant="blockband")
+    apply_ms = timed(torch, smi, flush, "blockband_apply", lambda: pc(up.rhs), 5, 2, n=usp.n, N_t=UNSTRUCTURED_N_T)
+    apply_wall, _, _ = wall_ms(torch, lambda: pc(up.rhs), 5, 2)
+    mv_ms = timed(torch, smi, flush, "unstructured_matvec_accurate", lambda: up.operator.matvec_accurate(up.rhs))
+    print(json.dumps({"phase": "unstructured_blockband", "N": UNSTRUCTURED_N, "n": usp.n, "N_t": UNSTRUCTURED_N_T,
+                      "dtype": "float32", **UNSTRUCTURED_SOLVER, "iterations": its, "converged": conv,
+                      "relative_residual_f64": rel, "rcm_bandwidth": bw,
+                      "factor_entries": blockband_entries(UNSTRUCTURED_N_T, usp.n, bw), "jax_bench_iterations": 69,
+                      "jax_bench_rel_f64": 2.07e-4, "gate": UNSTRUCTURED_MAX_REL, "first_solve_s": first_s, "ms": ms,
+                      "ms_per_iteration": ms / max(its, 1), "host_wall_ms": wall, "apply_ms": apply_ms,
+                      "apply_host_wall_ms": apply_wall, "level_steps_per_apply": 2 * -(-usp.n // bw),
+                      "matvec_accurate_ms": mv_ms, "card": smi}), flush=True)
+    if not (conv and rel <= UNSTRUCTURED_MAX_REL and bw == UNSTRUCTURED_BANDWIDTH):
+        return f"unstructured blockband: converged {conv} in {its} iterations, residual {rel:.3e}, bandwidth {bw}"
+    del up, usp, sol, run, pc
+    pts, tris = perturbed_mesh(8, UNSTRUCTURED_AMP, 1)
+    its = {}
+    for dev in (DEVICE, "cpu"):
+        p = WaveControlProblem(ProblemConfig(N_x=8, N_t=8, dim=2), device=dev,
+                               space=make_general_space(pts, tris, device=dev))
+        s = p.solve(SolverConfig(rtol=1e-10))
+        its[dev] = (int(s.result.iterations), bool(s.result.converged), s.u.cpu())
+    du = rel_err(torch, its[DEVICE][2], its["cpu"][2])
+    print(json.dumps({"phase": "unstructured_blockdense_card_vs_cpu", "N": 8, "N_t": 8, "dtype": "float64",
+                      "iterations": [its[DEVICE][0], its["cpu"][0]], "u_rel": du}), flush=True)
+    if not (its[DEVICE][:2] == its["cpu"][:2] and its[DEVICE][1] and du <= CARD_VS_CPU_U_TOL):
+        return f"blockdense auto route card vs CPU: {its[DEVICE][:2]} vs {its['cpu'][:2]}, u {du:.3e} apart"
+
+    # 30. the CLI: --dim 2 at the reference defaults, and --mesh-file
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in (("cli_dim2_default", ["--dim", "2"]),
+                           ("cli_mesh_file", ["--mesh-file", os.path.join(tmp, "mesh.npz"), "--nt", "16"])):
+            if name == "cli_mesh_file":
+                pts, tris = perturbed_mesh(16, UNSTRUCTURED_AMP, 2)
+                np.savez(os.path.join(tmp, "mesh.npz"), points=pts, triangles=tris)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rec = cli(argv + ["--out", os.path.join(tmp, name)])
+            rec = {k: v for k, v in rec.items() if k != "config"}
+            print(json.dumps({"phase": name, "argv": argv[:1], **rec, "seconds": time.perf_counter() - t0,
+                              "card": smi}), flush=True)
+            if not rec["converged"]:
+                return f"{name}: {rec}"
+
+    # 31. batched tensor GMRES, float64, B = 3
+    p = WaveControlProblem(ProblemConfig(N_x=32, N_t=32, dim=2), device=DEVICE)
+    g = torch.Generator(DEVICE).manual_seed(6)
+    bs = torch.stack([p.rhs] + [p.rhs * (1.0 + 0.5 * torch.randn(p.rhs.shape, dtype=f64, device=DEVICE, generator=g))
+                                for _ in range(BATCHED_TENSOR_B - 1)])
+    solve = build_tensor_gmres_solver(p.operator, rtol=1e-10, with_result=True)
+    xs, res = solve(bs)
+    seq = [solve(bs[i]) for i in range(BATCHED_TENSOR_B)]
+    its_b, its_s = [int(v) for v in res.iterations], [int(r.iterations) for _, r in seq]
+    dx = max(rel_err(torch, xs[i], seq[i][0]) for i in range(BATCHED_TENSOR_B))
+    print(json.dumps({"phase": "batched_tensor_gmres", "N_x": 32, "N_t": 32, "dtype": "float64", "B": BATCHED_TENSOR_B,
+                      "iterations": its_b, "iterations_sequential": its_s, "x_rel_max_abs_vs_sequential": dx,
+                      "tol": BATCHED_TENSOR_TOL}), flush=True)
+    if not (its_b == its_s and dx <= BATCHED_TENSOR_TOL and all(bool(c) for c in res.converged)):
+        return f"batched tensor GMRES: iterations {its_b} vs {its_s}, lanes {dx:.3e} apart"
+    return None
+
+
 def main() -> int:
     import torch
 
@@ -1666,6 +1958,9 @@ def main() -> int:
     b1.update(batched["wave"])
     b2.update(batched["heat"])
     err = krylov_direct_phases(torch, smi, flush)
+    if err:
+        return fail(err)
+    err = nondiagonal_phases(torch, smi, flush)
     if err:
         return fail(err)
 

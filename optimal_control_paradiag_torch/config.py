@@ -79,15 +79,23 @@ class SolverConfig:
     - ``method='gmres'`` (the default, the reference's own algorithm):
       restarted GMRES (``restart``, ``rtol``, ``atol``, ``maxiter``,
       ``pc_side``) preconditioned by the ParaDiag preconditioner
-      (``pc='paradiag'``; ``pc_variant`` 'fulldiag' or 'eig'; ``inner``
-      'auto', 'dst', 'tridiag_thomas', 'tridiag_pcr' or 'cocg', with
-      ``inner_tol`` and ``inner_maxiter`` for COCG);
+      (``pc='paradiag'``; ``pc_variant`` 'fulldiag', 'eig', 'block',
+      'blockdense', 'blockline' or 'blockband'; ``inner`` 'auto', 'dst',
+      'tridiag_thomas', 'tridiag_pcr', 'cocg' or 'cocg_jacobi', with
+      ``inner_tol`` and ``inner_maxiter`` for COCG); ``inner='auto'`` on a
+      space the sine transform does not diagonalize picks 'blockline' or
+      'block' (2D consistent mass), 'blockdense', 'blockband' or
+      Jacobi-COCG (triangle meshes) by their memory;
     - ``method='woodbury'``: the Sherman-Morrison-Woodbury direct solve in
       ParaDiag-diagonalized coordinates, rank 4 for the wave family and
       rank 2 for the heat family, with ``refine`` spectral and ``polish``
       physical-space defect-correction steps; ``use_pallas=True`` routes it
       through the family's fused CUDA kernel (``paradiag/cuda_woodbury.py``,
-      ``paradiag/cuda_heat.py``);
+      ``paradiag/cuda_heat.py``). On the 2D consistent mass it is GMRES
+      preconditioned by the exact solve of the tensor-mass surrogate
+      (``pc_variant='blockline'``: SMW over block-Thomas); on a triangle
+      mesh ``pc_variant='blockband'`` selects SMW over the banded
+      factorization;
     - ``method='minres'``: MINRES (``rtol``, ``maxiter``) on the
       block-row-swapped symmetric system, with the SPD absolute-value
       preconditioner unless ``pc=None`` (wave; the heat family always uses
@@ -97,8 +105,8 @@ class SolverConfig:
     - ``method='direct'``: dense LU of the assembled all-at-once matrix
       (small problems).
 
-    The preconditioner variants the port lacks are validated as in the JAX
-    package and raise ``NotImplementedError`` naming their ROADMAP item.
+    What the port lacks (the eigenbasis solve of triangle meshes, the
+    sharded layouts) raises ``NotImplementedError`` naming its ROADMAP item.
     """
 
     method: str = "gmres"

@@ -1,22 +1,24 @@
 """Carry a problem's state from the JAX package to the port.
 
 The system has no weights: its state is the two configs and the nodal data
-(``f, g, u0, u1`` for the wave family, ``f, g, u0`` for the heat family).
-These functions rebuild the port's objects from plain dicts
-(``dataclasses.asdict`` of the JAX configs) and numpy arrays, so the two
-packages can run on identical inputs. Nothing here imports JAX: a JAX
+(``f, g, u0, u1`` for the wave family, ``f, g, u0`` for the heat family),
+and, for a problem on a triangle mesh, the mesh (``points``, ``triangles``
+and, where given, the ``interior`` mask). These functions rebuild the port's
+objects from plain dicts (``dataclasses.asdict`` of the JAX configs) and
+numpy arrays, so the two packages can run on identical inputs. Nothing here imports JAX: a JAX
 dtype arrives as anything ``numpy.dtype`` understands (its name, or the
 scalar type itself).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from optimal_control_paradiag_torch.config import ProblemConfig, SolverConfig
+from optimal_control_paradiag_torch.fem.general import GeneralP1Space, make_general_space
 from optimal_control_paradiag_torch.models.heat import HeatControlProblem
 from optimal_control_paradiag_torch.models.wave import WaveControlProblem
 
@@ -39,13 +41,33 @@ def _config(problem_fields: Mapping) -> ProblemConfig:
     return ProblemConfig(**fields)
 
 
+def space_from_mesh(mesh: Mapping, dtype, device="cuda") -> GeneralP1Space:
+    """The port's :class:`fem.general.GeneralP1Space` of a JAX
+    ``GeneralP1Space``'s mesh: ``{'points', 'triangles'}`` and, optionally,
+    ``'interior'`` as numpy arrays (the JAX space's fields of those names).
+    Both packages assemble the same matrices from it with the same native
+    code."""
+    interior = mesh.get("interior")
+    return make_general_space(
+        np.asarray(mesh["points"]),
+        np.asarray(mesh["triangles"]),
+        dtype=torch_dtype(dtype),
+        interior=None if interior is None else np.asarray(interior, bool),
+        device=device,
+    )
+
+
 def problem_from_jax(
-    problem_fields: Mapping, data: Dict[str, np.ndarray], device="cuda"
+    problem_fields: Mapping, data: Dict[str, np.ndarray], device="cuda", mesh: Optional[Mapping] = None
 ) -> WaveControlProblem:
     """The port's :class:`WaveControlProblem` for a JAX ``ProblemConfig``'s
     fields and the JAX problem's nodal data (``{'f', 'g', 'u0', 'u1'}`` as
-    numpy arrays, scaled as the JAX package stores them)."""
-    return WaveControlProblem(_config(problem_fields), device=device, data=data)
+    numpy arrays, scaled as the JAX package stores them). ``mesh``: the
+    triangle mesh of a JAX problem on a ``GeneralP1Space``
+    (:func:`space_from_mesh`), built in the problem's dtype."""
+    cfg = _config(problem_fields)
+    space = None if mesh is None else space_from_mesh(mesh, cfg.dtype, device)
+    return WaveControlProblem(cfg, device=device, data=data, space=space)
 
 
 def heat_problem_from_jax(

@@ -24,18 +24,18 @@ p-row N_t-1, reading p_0), so the direct solve is a 2x2-capacity
 Sherman-Morrison-Woodbury identity on the ``K = N_t//2 + 1`` half-spectrum
 bins, exactly parallel to the wave family's rank-4 one.
 
-The port has the diagonalizable ``method='woodbury'`` branch (1D, or 2D with
-``mass='lumped'``): ``use_pallas=True`` routes it to the hand-written CUDA
-kernel (``paradiag/cuda_heat.py``), and ``polish`` adds physical-space defect
-correction. ``method='gmres'`` runs GMRES with the circulant ParaDiag
+``method='woodbury'`` is the direct solve on diagonalizable spaces (1D, or
+2D with ``mass='lumped'``): ``use_pallas=True`` routes it to the
+hand-written CUDA kernel (``paradiag/cuda_heat.py``), and ``polish`` adds
+physical-space defect correction. On the 2D consistent mass it is GMRES
+preconditioned by the exact SMW solve of the tensor-mass surrogate
+(:meth:`HeatControlProblem.build_tensor_gmres_solver`). ``method='gmres'`` runs GMRES with the circulant ParaDiag
 preconditioner (:meth:`HeatControlProblem.build_preconditioner`),
 ``method='minres'`` MINRES on the symmetrized system
 (:meth:`HeatControlProblem.build_symmetric_system`) and ``method='direct'``
 dense LU (:meth:`HeatControlProblem.dense`). The operators and the solver
 builders take states with leading batch axes, ``(..., 2, N_t, n)``, the
-counterpart of the JAX package's ``jax.vmap`` over them. The 2D
-consistent-mass Woodbury branch raises ``NotImplementedError`` naming its
-ROADMAP item.
+counterpart of the JAX package's ``jax.vmap`` over them.
 """
 
 from __future__ import annotations
@@ -50,20 +50,16 @@ import torch
 from optimal_control_paradiag_torch.config import ProblemConfig, SolverConfig
 from optimal_control_paradiag_torch.fem.space import P1Space, _np_shift, make_space, require_full_fp32_matmul
 from optimal_control_paradiag_torch.krylov.gmres import gmres
+from optimal_control_paradiag_torch.paradiag.woodbury2d import solve_lanes
 from optimal_control_paradiag_torch.krylov.minres import minres
 from optimal_control_paradiag_torch.ops.allatonce import dense_lu_solver, dense_matrix, join_state, split_state, tshift
 from optimal_control_paradiag_torch.paradiag import spectral
-from optimal_control_paradiag_torch.paradiag.pc import complex_dtype
 from optimal_control_paradiag_torch.paradiag.symmetric import _swap
 from optimal_control_paradiag_torch.paradiag.spectral import (
     make_halfspectrum_transforms,
     pairing_weights,
 )
-from optimal_control_paradiag_torch.utils.constants import host_f64, resolve_device, to_device
-
-# Where the part that the port does not have yet stands in ROADMAP Queue A.
-_ITEM9 = "item 9 (2D consistent mass)"
-
+from optimal_control_paradiag_torch.utils.constants import complex_dtype, host_f64, resolve_device, to_device
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"heat model: {what} is not ported yet: ROADMAP Queue A {item}")
@@ -213,13 +209,13 @@ class HeatControlProblem:
         det = np.abs(a11) ** 2 + tm * tm
         return L1, muM, muK, a11, tm, det
 
-    def _capacity_2x2(self) -> np.ndarray:
+    def _capacity_2x2(self, mass_surrogate: bool = False) -> np.ndarray:
         """Per-wavenumber REAL 2x2 capacity matrices ``G = (I + C W)^{-1} C``
         (float64 host), ``W = Phi* D^{-1} Psi`` with extractions (u slice
         N_t-1, p slice 0) and injections (u row 0, p row N_t-1), ``C =
         diag(muM, muM)``. The Hermitian pairing makes G real; raises if not."""
         N_t = self.config.N_t
-        _, muM64, _, a11_h, tm_h, det_h = self._plan()
+        _, muM64, _, a11_h, tm_h, det_h = self._plan(mass_surrogate=mass_surrogate)
         kf = np.arange(N_t)
         phiE = lambda i: np.exp(-2j * np.pi * i * kf / N_t)
         psiI = lambda i: np.exp(2j * np.pi * i * kf / N_t) / N_t
@@ -245,7 +241,11 @@ class HeatControlProblem:
         return G_h.real
 
     def build_woodbury_solver(
-        self, refine: int = 1, layout=None, time_transform: Optional[str] = None
+        self,
+        refine: int = 1,
+        mass_surrogate: bool = False,
+        layout=None,
+        time_transform: Optional[str] = None,
     ) -> Callable[[torch.Tensor], torch.Tensor]:
         """Half-spectrum rank-2 SMW direct solve ``b -> x`` in plain PyTorch
         (module docstring); ``refine`` spectral defect corrections polish
@@ -253,7 +253,9 @@ class HeatControlProblem:
         precision from its 1D factors, as the JAX package's jnp path does
         (the fused kernel packs it from the float64 plan instead).
         ``time_transform``: 'fft2' (packed FFT, default), 'fft', 'dft' or
-        'mxu' (``paradiag.spectral.make_halfspectrum_transforms``)."""
+        'mxu' (``paradiag.spectral.make_halfspectrum_transforms``). With
+        ``mass_surrogate`` it is the exact solve of the TENSOR-mass surrogate
+        operator (the 2D consistent mass's preconditioner)."""
         require_full_fp32_matmul()
         if layout is not None:
             _not_ported("the sharded Woodbury solve", "item 14")
@@ -263,7 +265,7 @@ class HeatControlProblem:
         K = N_t // 2 + 1
         rdtype, dev = cfg.dtype, self.device
         np_c = np.dtype(np.complex64 if rdtype == torch.float32 else np.complex128)
-        L1, muM64, muK64, _, _, _ = self._plan()
+        L1, muM64, muK64, _, _, _ = self._plan(mass_surrogate=mass_surrogate)
 
         k = np.arange(K)
         wgt = pairing_weights(N_t)
@@ -272,7 +274,7 @@ class HeatControlProblem:
         psi = lambda i: to_device(np.exp(2j * np.pi * i * k / N_t) / N_t, np_c, dev)
         phi_uN, phi_p1 = phiw(N_t - 1), phiw(0)
         psi_u1, psi_pN = psi(0), psi(N_t - 1)
-        G_h = self._capacity_2x2()
+        G_h = self._capacity_2x2(mass_surrogate=mass_surrogate)
         G = [[to_device(G_h[:, a, b], rdtype, dev) for b in range(2)] for a in range(2)]
 
         m1 = to_device(muM64, rdtype, dev)
@@ -402,8 +404,22 @@ class HeatControlProblem:
 
         return matvec_sym, pc_spd, _swap
 
-    def build_tensor_gmres_solver(self, rtol=1e-10, maxiter=60, with_result=False):
-        _not_ported("the tensor-mass GMRES solve", _ITEM9)
+    def build_tensor_gmres_solver(
+        self, rtol: float = 1e-10, maxiter: int = 60, with_result: bool = False
+    ) -> Callable[[torch.Tensor], object]:
+        """Mesh-independent 2D consistent-mass solve: GMRES preconditioned by
+        the EXACT tensor-mass surrogate SMW solve, the heat counterpart of
+        ``paradiag.woodbury2d.build_tensor_gmres_solver`` (the JAX package
+        measures 3-4 iterations at rtol 1e-10 across N). ``solve(b)``
+        returns x, or ``(x, GmresResult)`` with ``with_result``; a batch
+        ``(B, 2, N_t, n)`` gets per-lane records."""
+        W_t = self.build_woodbury_solver(refine=0, mass_surrogate=True)
+
+        def solve(b):
+            res = solve_lanes(self.matvec, b, 3, M=W_t, restart=maxiter, rtol=rtol, maxiter=maxiter)
+            return (res.x, res) if with_result else res.x
+
+        return solve
 
     def dense(self, chunk: int = 256) -> torch.Tensor:
         """The dense all-at-once matrix ``(m, m)``, ``m = 2 N_t n``, on the
@@ -437,7 +453,11 @@ class HeatControlProblem:
         if solver.method != "woodbury":
             raise NotImplementedError(f"heat model: method {solver.method!r}")
         if not self.space.diagonalizable:
-            _not_ported("the Woodbury solve of the 2D consistent mass (tensor GMRES)", _ITEM9)
+            # as the JAX package: tensor GMRES to rtol below 1e-6, else to
+            # 1e-10 (float64) / 1e-5 (float32); polish does not apply
+            f64 = self.config.dtype == torch.float64
+            tight = solver.rtol if solver.rtol < 1e-6 else (1e-10 if f64 else 1e-5)
+            return self.build_tensor_gmres_solver(rtol=tight, with_result=True)
         if solver.polish:
             wb = self.build_polished_solver(
                 polish=solver.polish, refine=solver.refine, use_pallas=solver.use_pallas

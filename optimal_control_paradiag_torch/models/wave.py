@@ -6,14 +6,22 @@ the solve, and validation against the manufactured solution. Methods:
 
 - ``'gmres'``, the reference's own algorithm: restarted GMRES with the
   ParaDiag preconditioner (``fulldiag`` or ``eig`` with its inner solvers);
-- ``'woodbury'``, the diagonalizable direct solve, with ``polish``;
+- ``'woodbury'``, the direct solve, with ``polish``: the rank-4 Woodbury
+  identity where the sine transform diagonalizes the space; on the 2D
+  consistent mass GMRES preconditioned by the exact solve of its tensor-mass
+  surrogate (``paradiag/woodbury2d.py``), or with ``pc_variant='blockline'``
+  (structured) / ``'blockband'`` (unstructured meshes) the
+  Sherman-Morrison-Woodbury solve over an exact circulant factorization;
 - ``'spectral'``: GMRES in ParaDiag-diagonalized coordinates;
 - ``'minres'``: MINRES on the block-row-swapped symmetric system;
 - ``'direct'``: dense LU of the assembled matrix (small problems).
 
 :meth:`WaveControlProblem.make_batched_solver_fn` solves B systems at once.
-What the port does not have yet (2D consistent-mass Woodbury, the block
-preconditioners) raises ``NotImplementedError`` naming its ROADMAP item.
+A problem takes a structured space (1D, 2D lumped or consistent mass) from
+its config, or any prebuilt space, such as a
+:class:`fem.general.GeneralP1Space` on a triangle mesh. What the port does
+not have yet (the eigenbasis solve of unstructured meshes) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from optimal_control_paradiag_torch.krylov.gmres import gmres, gmres_batched
 from optimal_control_paradiag_torch.krylov.minres import minres
 from optimal_control_paradiag_torch.models.analytic import manufactured
 from optimal_control_paradiag_torch.ops.allatonce import build_operator, build_rhs, dense_lu_solver
+from optimal_control_paradiag_torch.paradiag.blockband import band_profile, blockband_entries
+from optimal_control_paradiag_torch.paradiag.blockline import blockline_entries
 from optimal_control_paradiag_torch.paradiag.inner import (
     make_cocg_inner_solver,
     make_dst_inner_solver,
@@ -45,6 +55,7 @@ from optimal_control_paradiag_torch.paradiag.spectral import (
     spectral_relative_residual,
 )
 from optimal_control_paradiag_torch.paradiag.symmetric import build_symmetric_system
+from optimal_control_paradiag_torch.paradiag.woodbury2d import build_tensor_gmres_solver, build_woodbury2d_solver
 from optimal_control_paradiag_torch.utils.constants import host_f64, resolve_device, to_device
 
 
@@ -63,12 +74,18 @@ class WaveControlProblem:
     the constructor raises unless ``device='cpu'`` is passed.
     ``data``: nodal data ``{'f': (N_t, n), 'g': (N_t, n), 'u0': (n,),
     'u1': (n,)}`` (f, u0, u1 already scaled by sqrt(gamma) in scaled mode),
-    by default the manufactured problem's."""
+    by default the manufactured problem's.
+    ``space``: a prebuilt space in place of the structured one of the
+    config, e.g. a :class:`fem.general.GeneralP1Space` on a triangle mesh;
+    it must be 2D (``config.N_x`` then plays no part in the geometry) and
+    lie on ``device``."""
 
-    def __init__(self, config: ProblemConfig, device="cuda", data: Optional[Dict] = None):
+    def __init__(self, config: ProblemConfig, device="cuda", data: Optional[Dict] = None, space=None):
         self.config = config
         self.device = resolve_device(device)
-        self.space: P1Space = make_space(
+        if space is not None and torch.device(space.device).type != self.device.type:
+            raise ValueError(f"the space lies on {space.device}, the problem on {self.device}")
+        self.space: P1Space = space if space is not None else make_space(
             config.dim,
             config.N_x,
             mass=config.mass,
@@ -165,11 +182,8 @@ class WaveControlProblem:
 
             return run
         if not self.space.diagonalizable:
-            raise NotImplementedError(
-                "the Woodbury solve of non-sine-diagonalizable spaces (2D consistent "
-                "mass) is not ported yet: ROADMAP Queue A item 9"
-            )
-        if solver.use_pallas:
+            wb = self._nondiagonal_direct_solver(solver)
+        elif solver.use_pallas:
             from optimal_control_paradiag_torch.paradiag.cuda_woodbury import (
                 build_cuda_woodbury_solver,
             )
@@ -187,6 +201,46 @@ class WaveControlProblem:
 
         return run
 
+    def _nondiagonal_direct_solver(self, solver: SolverConfig):
+        """The direct-solve API (``method='woodbury'``) on a space the sine
+        transform does not diagonalize, as the JAX package routes it: on the
+        2D consistent mass GMRES preconditioned by the exact tensor-mass
+        Woodbury solve (mesh-independent), or with ``pc_variant='blockline'``
+        the SMW solve over block-Thomas; on an unstructured mesh with
+        ``pc_variant='blockband'`` the SMW solve over the RCM-banded
+        factorization. The GMRES tolerance is ``solver.rtol`` below 1e-6,
+        else 1e-10 in float64 and 1e-5 in float32."""
+        op = self.operator
+        f64 = self.config.dtype == torch.float64
+        tight = solver.rtol if solver.rtol < 1e-6 else (1e-10 if f64 else 1e-5)
+        structured = hasattr(self.space, "n1d")
+        if solver.pc_variant == ("blockline" if structured else "blockband"):
+            return build_woodbury2d_solver(op, cap_rtol=tight)
+        if not structured:
+            raise NotImplementedError(
+                "the default Woodbury solve of unstructured meshes (the generalized-eigenbasis "
+                "solve) is not ported yet: ROADMAP Queue A item 11; pc_variant='blockband' "
+                "selects the Sherman-Morrison-Woodbury solve over the banded factorization"
+            )
+        return build_tensor_gmres_solver(op, rtol=tight)
+
+    def _auto_variant(self, solver: SolverConfig):
+        """``(variant, inner)`` of ``inner='auto'`` on a space the sine
+        transform does not diagonalize, the JAX package's rule. Structured 2D
+        consistent mass: the block-Thomas factorization while its factors
+        fit (4e8 entries), else the coupled block COCG. Unstructured: the
+        dense per-mode inverses up to 3e8 entries, then the RCM-banded
+        factorization up to 4e8, then 'eig' with Jacobi-COCG."""
+        cfg, sp = self.config, self.space
+        if hasattr(sp, "n1d"):
+            return ("blockline" if blockline_entries(cfg.N_t, sp.n1d) <= 4e8 else "block"), None
+        if cfg.N_t * (2 * sp.n) ** 2 <= 3e8:
+            return "blockdense", None
+        _, m_band = band_profile(sp)
+        if blockband_entries(cfg.N_t, sp.n, m_band) <= 4e8:
+            return "blockband", None
+        return "eig", make_jacobi_cocg_inner_solver(sp, cfg.dt, solver.inner_tol, solver.inner_maxiter)
+
     def _make_gmres_solver(self, solver: SolverConfig, krylov=gmres):
         """GMRES (``krylov``: :func:`gmres`, or :func:`gmres_batched` for a
         batch) on the all-at-once system, preconditioned as the JAX
@@ -200,13 +254,9 @@ class WaveControlProblem:
             variant = solver.pc_variant
             inner = None
             if solver.inner == "auto":
+                # an explicit pc_variant is always kept
                 if not self.space.diagonalizable and variant == "fulldiag":
-                    # the JAX package picks 'blockline' or 'block' here
-                    raise NotImplementedError(
-                        "GMRES on a non-sine-diagonalizable space (2D consistent mass) routes "
-                        "inner='auto' to the blockline/block preconditioners, which are not "
-                        "ported yet: ROADMAP Queue A items 9 and 10"
-                    )
+                    variant, inner = self._auto_variant(solver)
             elif solver.inner == "dst":
                 variant = "eig"
                 inner = make_dst_inner_solver(self.space, cfg.dt)
@@ -223,10 +273,11 @@ class WaveControlProblem:
                 )
             pc_apply = build_preconditioner(op, variant=variant, inner_solver=inner)
 
-        # float32 on non-sine-diagonalizable spaces: the cancellation-aware
-        # matvec, as in the JAX package (the port has no such space that
-        # reaches GMRES in float32 yet: 2D consistent mass raises above
-        # unless an explicit inner solver is given).
+        # float32 on non-sine-diagonalizable spaces (2D consistent, triangle
+        # meshes): GMRES on op.matvec stalls on the stencil's smooth-mode
+        # cancellation noise (the JAX package measures 69 iterations on its
+        # perturbed-mesh bench problem); the cancellation-aware matvec keeps
+        # the float64 iteration counts. float64 keeps the plain stencils.
         f32 = cfg.dtype == torch.float32
         mv = op.matvec_accurate if (f32 and not self.space.diagonalizable) else op.matvec
 
@@ -292,13 +343,20 @@ class WaveControlProblem:
         return torch.linalg.norm((self.operator.matvec(x) - self.rhs).reshape(-1))
 
     def relative_residual_f64(self, sol: WaveSolution) -> float:
-        """``||A x - b|| / ||b||`` via the host float64 spectral oracle
-        (:func:`paradiag.spectral.spectral_relative_residual`): it measures
-        the true residual of float32 solutions, below the float32 matvec's
-        cancellation noise floor (~1e-3)."""
+        """``||A x - b|| / ||b||`` via a host float64 oracle: it measures the
+        true residual of float32 solutions, below the float32 matvec's
+        cancellation noise floor (~1e-3). Sine-diagonalizable grids use the
+        spectral-coordinate oracle
+        (:func:`paradiag.spectral.spectral_relative_residual`), other spaces
+        (2D consistent mass, triangle meshes) the space-generic numpy matvec
+        (:meth:`ops.allatonce.AllAtOnceOperator.matvec_host_f64`)."""
         scale = math.sqrt(self.config.gamma) if self.config.scaled else 1.0
         x = np.stack([host_f64(sol.u) * scale, host_f64(sol.p)])
-        return spectral_relative_residual(self.operator, x, host_f64(self.rhs))
+        b = host_f64(self.rhs)
+        if self.space.diagonalizable and hasattr(self.space, "grid_shape"):
+            return spectral_relative_residual(self.operator, x, b)
+        r = self.operator.matvec_host_f64(x) - b
+        return float(np.linalg.norm(r.ravel()) / np.linalg.norm(b.ravel()))
 
     # ------------------------------------------------------------ validation
 

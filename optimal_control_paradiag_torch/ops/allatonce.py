@@ -201,6 +201,13 @@ def dense_lu_solver(A: torch.Tensor, shape):
     return run
 
 
+def _nonzeros(csr) -> set:
+    """The (row, column) pairs of a CSR matrix's nonzero entries."""
+    rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+    keep = csr.data != 0
+    return set(zip(rows[keep].tolist(), csr.indices[keep].tolist()))
+
+
 def operator_nnz(op: AllAtOnceOperator) -> int:
     """Exact nonzero count of the assembled all-at-once matrix (the 'aij'
     matrix the reference hands to MUMPS). Per time level the u-row at time i
@@ -212,14 +219,19 @@ def operator_nnz(op: AllAtOnceOperator) -> int:
       2D consistent: M is the 7-point FK stencil (7m^2 - 8m + 2), K the
         5-point (5m^2 - 4m), union = M's pattern.
       2D lumped: M diagonal (m^2), union = K's 5-point pattern.
+      Unstructured: counted from the assembled CSR patterns.
     """
     sp = op.space
-    m = sp.n1d
-    if sp.dim == 1:
+    if not hasattr(sp, "n1d"):
+        pM = sp.M_csr.nnz
+        pMK = len(_nonzeros(sp.M_csr) | _nonzeros(sp.K_csr))
+    elif sp.dim == 1:
+        m = sp.n1d
         tri = 3 * m - 2
         pM = m if sp.mass == "lumped" else tri
         pMK = tri
     else:
+        m = sp.n1d
         five = 5 * m * m - 4 * m
         seven = 7 * m * m - 8 * m + 2
         pM = m * m if sp.mass == "lumped" else seven

@@ -11,7 +11,9 @@ returns ``solve(sigma, rhs)``: the solutions of ``(sigma_k M + dt^2/2 K) w_k
 - **tridiag** (1D): batched complex Thomas or PCR solves on the assembled
   diagonals (``ops/tridiag.py``), exact for either mass;
 - **cocg** (2D consistent mass): COCG preconditioned by the tensor-part mass
-  sine-spectral inverse (``P1Space.spectrum_tensor``).
+  sine-spectral inverse (``P1Space.spectrum_tensor``);
+- **cocg_jacobi** (unstructured meshes): COCG preconditioned by the inverse
+  of the shifted operator's diagonal.
 """
 
 from __future__ import annotations
@@ -65,13 +67,34 @@ def make_tridiag_inner_solver(space: P1Space, dt: float, method: str = "pcr") ->
 
 
 def make_jacobi_cocg_inner_solver(space, dt: float, tol: float = 1e-10, maxiter: int = 200) -> Callable:
-    """Jacobi-preconditioned COCG for a general (unstructured) space, one
-    with ``mass_diag`` and ``stiffness_diag``. The port has no such space
-    yet, so this raises."""
-    raise NotImplementedError(
-        "inner='cocg_jacobi' needs a general (unstructured) space with mass_diag and "
-        "stiffness_diag, which is not ported yet: ROADMAP Queue A item 10"
-    )
+    """Batched Jacobi-preconditioned COCG for ``(sigma M + dt^2/2 K) w = r``
+    on a general (unstructured) space: any space with ``apply_mass``,
+    ``apply_stiffness``, ``mass_diag`` and ``stiffness_diag``
+    (:class:`fem.general.GeneralP1Space`). The unstructured counterpart of
+    :func:`make_cocg_inner_solver`, which needs the sine spectrum; the exact
+    alternative is ``pc_variant='blockdense'``."""
+    if not hasattr(space, "mass_diag"):
+        raise ValueError(
+            "inner='cocg_jacobi' needs a general (unstructured) space with mass_diag and "
+            "stiffness_diag; structured spaces have the dst, tridiag and cocg inner solvers"
+        )
+    c = 0.5 * dt * dt
+    mdiag = _row(space, np.asarray(space.mass_diag(), np.float64))
+    kdiag = _row(space, np.asarray(space.stiffness_diag(), np.float64))
+
+    def solve(sigma, rhs):
+        x, _ = cocg(
+            lambda w: sigma * space.apply_mass(w) + c * space.apply_stiffness(w),
+            rhs,
+            M=lambda r: r / (sigma * mdiag + c * kdiag),
+            dot_axes=(-1,),
+            tol=tol,
+            maxiter=maxiter,
+            batch_dims=rhs.ndim - 2,
+        )
+        return x
+
+    return solve
 
 
 def make_cocg_inner_solver(space: P1Space, dt: float, tol: float = 1e-10, maxiter: int = 50) -> Callable:

@@ -20,11 +20,24 @@ analogue of the all-at-once matrix (time stencils replaced by circulants):
   the sine-spectral inverse unless an ``inner_solver`` is given
   (``paradiag/inner.py``).
 
+The spaces the sine transform does not diagonalize (2D consistent mass,
+unstructured meshes) solve the coupled per-mode system P_k w = r directly:
+
+'block': batched COCG on the p-row-negated (complex symmetric) P_k,
+  preconditioned by the tensor-part mass sine-spectral 2x2 Cramer inverse
+  (structured grids; memory-free, but COCG can stall at indefinite-Helmholtz
+  resonant modes);
+'blockdense': per-mode dense inverses of P_k, made once on the host (the
+  analogue of the reference's cached MUMPS factorization), N_t (2n)^2
+  stored entries;
+'blockline': block-Thomas over grid lines on the half spectrum
+  (``paradiag/blockline.py``, structured grids);
+'blockband': block-Thomas over RCM-banded levels on the half spectrum
+  (``paradiag/blockband.py``, unstructured meshes).
+
 The time transform is ``torch.fft`` or, with ``time_transform='dft'``, the
-real-matmul DFT of ``ops/transforms.py``. The JAX package's other variants
-('block', 'blockdense', 'blockline', 'blockband') and its sharded ``layout``
-are not ported yet and raise ``NotImplementedError`` naming their ROADMAP
-item.
+real-matmul DFT of ``ops/transforms.py``. The sharded ``layout`` is not
+ported yet and raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,23 +48,16 @@ import numpy as np
 import torch
 
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
+from optimal_control_paradiag_torch.krylov.cocg import cocg
 from optimal_control_paradiag_torch.ops import transforms
 from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator, join_state, split_state
+from optimal_control_paradiag_torch.paradiag.blockband import build_blockband_solver
+from optimal_control_paradiag_torch.paradiag.blockline import build_blockline_solver
 from optimal_control_paradiag_torch.paradiag.eigs import circulant_eigs
 from optimal_control_paradiag_torch.paradiag.inner import make_dst_inner_solver
-from optimal_control_paradiag_torch.utils.constants import to_device
+from optimal_control_paradiag_torch.utils.constants import complex_dtype, host_f64, to_device
 
-_NOT_PORTED_VARIANTS = {
-    "block": "item 9 (2D consistent mass)",
-    "blockline": "item 9 (2D consistent mass)",
-    "blockdense": "items 9 and 10 (2D consistent mass, unstructured meshes)",
-    "blockband": "item 10 (unstructured meshes)",
-}
-
-
-def complex_dtype(rdtype) -> torch.dtype:
-    """The complex dtype that matches a real one."""
-    return torch.complex64 if rdtype == torch.float32 else torch.complex128
+_VARIANTS = ("fulldiag", "eig", "block", "blockdense", "blockline", "blockband")
 
 
 def build_preconditioner(
@@ -60,6 +66,8 @@ def build_preconditioner(
     inner_solver: Optional[Callable] = None,
     layout=None,
     time_transform: Optional[str] = None,
+    inner_tol: float = 1e-10,
+    inner_maxiter: int = 50,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Return ``apply(r) -> y ~= P^{-1} r`` on ``(..., 2, N_t, n)`` states
     (leading axes are a batch; time is dim -2).
@@ -69,8 +77,8 @@ def build_preconditioner(
     (N_t, 1) and right-hand sides (N_t, n) and returns the solutions of
     ``(sigma_k M + dt^2/2 K) w_k = rhs_k``. ``time_transform``: 'fft'
     (``torch.fft``, the default) or 'dft' (real-matmul DFT from
-    :mod:`ops.transforms`). The JAX package's ``inner_tol`` and
-    ``inner_maxiter`` belong to its 'block' variant, which is not ported.
+    :mod:`ops.transforms`). ``inner_tol`` and ``inner_maxiter`` bound the
+    'block' variant's COCG.
     """
     if layout is not None:
         raise NotImplementedError(
@@ -84,11 +92,7 @@ def build_preconditioner(
             "The ParaDiag preconditioner requires the sqrt(gamma)-scaled "
             "system (reference 'pc' mode)."
         )
-    if variant in _NOT_PORTED_VARIANTS:
-        raise NotImplementedError(
-            f"pc_variant={variant!r} is not ported yet: ROADMAP Queue A {_NOT_PORTED_VARIANTS[variant]}"
-        )
-    if variant not in ("fulldiag", "eig"):
+    if variant not in _VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
     require_full_fp32_matmul()
     sp = op.space
@@ -140,6 +144,19 @@ def build_preconditioner(
 
         return apply_fulldiag
 
+    if variant == "block":
+        return _block(op, sp, e, c, ifft_t, fft_t_real, inner_tol, inner_maxiter)
+    if variant == "blockdense":
+        return _blockdense(op, sp, e, c, ifft_t, fft_t_real)
+    if variant in ("blockline", "blockband"):
+        build = build_blockline_solver if variant == "blockline" else build_blockband_solver
+        inner_solve = build(op)
+
+        def apply_banded(r: torch.Tensor) -> torch.Tensor:
+            return fft_t_real(inner_solve(ifft_t(r)))
+
+        return apply_banded
+
     col = lambda v: to_device(np.asarray(v)[:, None], cdtype, dev)
     S1, S2, Sig1, Sig2 = col(e.S1), col(e.S2), col(e.Sigma1), col(e.Sigma2)
     L2, L2c = col(e.Lambda2), col(np.conj(e.Lambda2))
@@ -166,3 +183,91 @@ def build_preconditioner(
         return fft_t_real(join_state(yu, yp))
 
     return apply_eig
+
+
+def _block(op, sp, e, c, ifft_t, fft_t_real, inner_tol, inner_maxiter):
+    """The 'block' variant: the coupled per-mode system solved by batched
+    COCG. Negating the p-row makes it complex SYMMETRIC,
+
+        [[L1 M + c L2 K,  -theta M], [-theta M, -(conj(L1) M + c conj(L2) K)]],
+
+    with no S-eig decoupling, hence no division by Lambda_2 (stable for any
+    N_t). The preconditioner is the 2x2 Cramer inverse with the tensor-part
+    mass spectrum (``P1Space.spectrum_tensor``, the optimal sine-diagonal
+    surrogate of M). Each lane of a batch keeps its own COCG stopping test."""
+    theta = op.dt * op.dt / (op.gamma**0.5)
+    _, muK = sp.spectrum
+    if muK is None:
+        raise ValueError(
+            "variant='block' needs a structured-grid space (sine-"
+            "diagonalizable stiffness); use 'blockdense' or "
+            "inner='cocg_jacobi' on unstructured meshes"
+        )
+    rdtype, dev = sp.dtype, sp.device
+    cdtype = complex_dtype(rdtype)
+    muK_h = np.asarray(muK, np.float64)[None, :]
+    muMt_h = np.asarray(sp.spectrum_tensor, np.float64)[None, :]
+    L1h = np.asarray(e.Lambda1)[:, None]
+    L2h = np.asarray(e.Lambda2)[:, None]
+    b11_h = L1h * muMt_h + c * L2h * muK_h
+    pdet_h = -(np.abs(b11_h) ** 2) - (theta * muMt_h) ** 2  # real, < 0
+    L1, L2 = to_device(L1h, cdtype, dev), to_device(L2h, cdtype, dev)
+    L1c, L2c = to_device(np.conj(L1h), cdtype, dev), to_device(np.conj(L2h), cdtype, dev)
+    b11, b11c = to_device(b11_h, cdtype, dev), to_device(np.conj(b11_h), cdtype, dev)
+    bcoup = to_device(theta * muMt_h, rdtype, dev)
+    pdet = to_device(pdet_h, rdtype, dev)
+
+    def block_A(w):
+        wu, wp = split_state(w)
+        mu_, mp_ = sp.apply_mass(wu), sp.apply_mass(wp)
+        ku_, kp_ = sp.apply_stiffness(wu), sp.apply_stiffness(wp)
+        return join_state(L1 * mu_ + c * L2 * ku_ - theta * mp_, -theta * mu_ - (L1c * mp_ + c * L2c * kp_))
+
+    def block_pinv(r):
+        ru, rp = split_state(sp.dst(r))
+        return sp.idst(join_state((-b11c * ru + bcoup * rp) / pdet, (bcoup * ru + b11 * rp) / pdet))
+
+    def apply_block(r: torch.Tensor) -> torch.Tensor:
+        ru, rp = split_state(ifft_t(r))
+        w, _ = cocg(block_A, join_state(ru, -rp), M=block_pinv, dot_axes=(-3, -1),
+                    tol=inner_tol, maxiter=inner_maxiter, batch_dims=r.ndim - 3)
+        return fft_t_real(w)
+
+    return apply_block
+
+
+def _blockdense(op, sp, e, c, ifft_t, fft_t_real):
+    """The 'blockdense' variant: per-mode dense inverses of the coupled
+    2x2-block systems P_k, made once on the host (numpy, complex128; the
+    analogue of the reference's cached MUMPS factorization) and applied as
+    one mode-batched complex product. Exact for every mode, the
+    indefinite-Helmholtz ones and the Lambda_2 ~ 0 ones (N_t % 4 == 0)
+    included. Memory: N_t (2n)^2 complex entries, refused past 3e8."""
+    n = sp.n
+    entries = op.N_t * (2 * n) ** 2
+    if entries > 3e8:
+        raise ValueError(
+            f"blockdense would need {entries:.1e} stored entries; use "
+            "variant='eig' with an iterative inner_solver for this size"
+        )
+    theta = op.dt * op.dt / (op.gamma**0.5)
+    M_h = host_f64(sp.mass_dense())
+    K_h = host_f64(sp.stiffness_dense())
+    W = np.empty((op.N_t, 2 * n, 2 * n), np.complex128)
+    for k in range(op.N_t):
+        A = np.zeros((2 * n, 2 * n), np.complex128)
+        A[:n, :n] = e.Lambda1[k] * M_h + c * e.Lambda2[k] * K_h
+        A[:n, n:] = -theta * M_h
+        A[n:, :n] = theta * M_h
+        A[n:, n:] = np.conj(e.Lambda1[k]) * M_h + c * np.conj(e.Lambda2[k]) * K_h
+        W[k] = np.linalg.inv(A)
+    Wd = to_device(W, complex_dtype(sp.dtype), sp.device)
+
+    def apply_blockdense(r: torch.Tensor) -> torch.Tensor:
+        ru, rp = split_state(ifft_t(r))
+        lead = r.shape[:-3]
+        rvec = torch.cat([ru, rp], dim=-1).reshape((-1, op.N_t, 2 * n))  # (nb, N_t, 2n)
+        w = torch.bmm(Wd, rvec.permute(1, 2, 0)).permute(2, 0, 1).reshape(lead + (op.N_t, 2 * n))
+        return fft_t_real(join_state(w[..., :n], w[..., n:]))
+
+    return apply_blockdense

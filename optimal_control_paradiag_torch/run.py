@@ -12,11 +12,13 @@ constants, pc/complex dispatch, wall-clock prints, convergence sweep writing
   python -m optimal_control_paradiag_torch.run --dim 2 --mass lumped
   python -m optimal_control_paradiag_torch.run --model heat --method woodbury
   python -m optimal_control_paradiag_torch.run --model heat --sweep  # tau-order
+  python -m optimal_control_paradiag_torch.run --dim 2                # 2D consistent mass
+  python -m optimal_control_paradiag_torch.run --mesh-file mesh.npz   # a triangle mesh
 
 It runs on the CUDA card unless ``--platform cpu`` is given, in both dtypes
 (the JAX CLI picks the CPU for float64, which its TPU lacks). The sharded
-``--mesh`` runs, ``--mesh-file`` and the eigenbasis cache are not ported
-yet and exit naming their ROADMAP item; so do the methods the port lacks
+``--mesh`` runs (with or without ``--mesh-file``) and the eigenbasis cache
+are not ported yet and exit naming their ROADMAP item; so do the methods the port lacks
 (``NotImplementedError`` from the model). The JAX CLI's persistent
 compilation cache has no counterpart here but the kernels' build cache
 (``csrc/_build/``).
@@ -83,8 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         metavar="NPZ",
         help="solve on an arbitrary triangle mesh: an .npz with 'points' (n,2) "
-        "float and 'triangles' (m,3) int, optional boolean 'interior' (not "
-        "ported yet: ROADMAP Queue A item 10)",
+        "float and 'triangles' (m,3) int, optional boolean 'interior' "
+        "(the wave model; with --mesh not ported yet: ROADMAP Queue A item 14)",
     )
     p.add_argument("--sweep", action="store_true", help="run the N=5..70 convergence sweep (ref :583-631)")
     p.add_argument(
@@ -153,8 +155,6 @@ def main(argv=None):
         _exit_not_ported("--eig-method (the unstructured eigenbasis)", "11")
     if args.mesh:
         _exit_not_ported("--mesh (the sharded solve)", "14")
-    if args.mesh_file:
-        _exit_not_ported("--mesh-file (unstructured meshes)", "10")
     # --nx default resolution: None means "not given" so per-mode defaults
     # (wave: 80, heat sweep: 128) never collide with an explicit value.
     if args.nx is None and not (args.model == "heat" and args.sweep):
@@ -187,13 +187,28 @@ def main(argv=None):
     if args.sweep:
         return run_sweep(args, dtype, solver, device)
 
+    space = None
+    if args.mesh_file:
+        import numpy as np
+
+        from optimal_control_paradiag_torch.fem.general import make_general_space
+
+        z = np.load(args.mesh_file)
+        space = make_general_space(
+            z["points"],
+            z["triangles"],
+            dtype=dtype,
+            interior=z["interior"] if "interior" in z.files else None,
+            device=device,
+        )
+        args.dim = 2
     cfg = ProblemConfig(
         N_x=args.nx, N_t=args.nt, T=args.T, gamma=args.gamma,
         dim=args.dim, mass=args.mass, dtype=dtype,
     )
     timer = StageTimer()
     with timer.stage("setup") as out:
-        prob = WaveControlProblem(cfg, device=device)
+        prob = WaveControlProblem(cfg, device=device, space=space)
         out["fence"] = prob.rhs
     with profile_trace(args.profile):
         with timer.stage("solve (compile + run)") as out:

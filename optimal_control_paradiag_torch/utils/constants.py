@@ -27,6 +27,11 @@ def np_dtype(dtype) -> np.dtype:
     return np.dtype(dtype)
 
 
+def complex_dtype(rdtype) -> torch.dtype:
+    """The complex dtype that matches a real one."""
+    return torch.complex64 if rdtype == torch.float32 else torch.complex128
+
+
 def host_const(x, dtype) -> np.ndarray:
     """Cast a setup-time constant to ``dtype`` (torch or numpy) on the host."""
     return np.asarray(x, dtype=np_dtype(dtype))

@@ -126,9 +126,9 @@ def test_cocg_solves_2d_consistent_shifted_system_like_jax():
 
 def test_jacobi_cocg_needs_a_general_space():
     """The JAX package reaches ``space.mass_diag`` and fails with an
-    AttributeError on a structured space; the port names the ROADMAP item
-    of the general space it needs."""
-    with pytest.raises(NotImplementedError, match="item 10"):
+    AttributeError on a structured space; the port raises a ValueError that
+    names the (unstructured) spaces it serves."""
+    with pytest.raises(ValueError, match="general"):
         inner.make_jacobi_cocg_inner_solver(make_space(1, 8, device="cpu"), 0.1)
 
 
@@ -148,8 +148,8 @@ def test_eig_inner_solvers_end_to_end(which):
 
 
 def test_wave_cocg_inner_on_2d_consistent_mass_matches_jax():
-    """An explicit ``inner='cocg'`` is the one GMRES route on the 2D
-    consistent mass that the port has (``inner='auto'`` raises)."""
+    """An explicit ``inner='cocg'`` on the 2D consistent mass (the 'eig'
+    variant with COCG inner solves; ``inner='auto'`` picks blockline)."""
     jcfg = J.ProblemConfig(N_x=6, N_t=8, dim=2)
     jp = J.WaveControlProblem(jcfg)
     tp = problem_from_jax(dataclasses.asdict(jcfg), {k: np.asarray(v) for k, v in jp._data.items()}, device="cpu")
@@ -163,12 +163,21 @@ def test_wave_cocg_inner_on_2d_consistent_mass_matches_jax():
 @pytest.mark.parametrize(
     "cfg,solver,match",
     [
-        (ProblemConfig(N_x=6, N_t=6, dim=2), SolverConfig(), "items 9 and 10"),
-        (ProblemConfig(N_x=8, N_t=6), SolverConfig(inner="cocg_jacobi"), "item 10"),
-        (ProblemConfig(N_x=8, N_t=6), SolverConfig(pc_variant="blockdense"), "item"),
+        (ProblemConfig(N_x=6, N_t=6, dim=2), SolverConfig(rtol=1e-8), None),
+        (ProblemConfig(N_x=8, N_t=6), SolverConfig(inner="cocg_jacobi"), "general"),
+        (ProblemConfig(N_x=8, N_t=6), SolverConfig(rtol=1e-8, pc_variant="blockdense"), None),
     ],
     ids=["2d-consistent-auto", "cocg-jacobi", "blockdense"],
 )
 def test_unported_gmres_routes_raise(cfg, solver, match):
-    with pytest.raises(NotImplementedError, match=match):
-        WaveControlProblem(cfg, device="cpu").solve(solver)
+    """The GMRES routes of ROADMAP Queue A items 9 and 10: the 2D consistent
+    mass's auto route (blockline) and 'blockdense' converge; Jacobi-COCG on
+    a structured space raises ``ValueError`` (the JAX package an
+    AttributeError: a structured space has no ``mass_diag``)."""
+    prob = WaveControlProblem(cfg, device="cpu")
+    if match is None:
+        sol = prob.solve(solver)
+        assert bool(sol.result.converged) and prob.relative_residual_f64(sol) < 1e-6
+    else:
+        with pytest.raises(ValueError, match=match):
+            prob.solve(solver)

@@ -111,17 +111,18 @@ def test_pc_requires_scaled_system():
 
 
 def test_pc_refusals():
-    """What the port refuses, and how: the JAX package's ValueErrors, and
-    NotImplementedError naming the ROADMAP item of what is not ported."""
+    """What the port refuses, and how: the JAX package's ValueErrors (the
+    2D direct variants refuse a 1D space, as JAX's do)."""
     _, top = _ops(1, 8, 7)
     _, top2 = _ops(2, 5, 6)  # 2D consistent mass
     r = torch.from_numpy(np.random.default_rng(8).standard_normal(top.shape))
     _close(build_preconditioner(top)(r), build_preconditioner(top, time_transform="dft")(r), 1e-12)
     with pytest.raises(ValueError, match="time_transform"):
         build_preconditioner(top, time_transform="x")
-    for variant in ("block", "blockline", "blockdense", "blockband"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-            build_preconditioner(top, variant=variant)
+    with pytest.raises(ValueError, match="2D"):
+        build_preconditioner(top, variant="blockline")
+    with pytest.raises(ValueError, match="diagonalizable"):
+        build_preconditioner(top, variant="blockband")
     with pytest.raises(ValueError, match="unknown variant"):
         build_preconditioner(top, variant="x")
     with pytest.raises(ValueError, match="sine-diagonalizable"):

@@ -14,6 +14,7 @@ field's largest value, their other lines equal."""
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -201,7 +202,7 @@ def test_cli_platform_x64_and_profile_flags():
     [
         (["--mesh", "2,1", "--sweep"], "cannot be combined"),
         (["--mesh", "2,1"], "item 14"),
-        (["--mesh-file", "m.npz"], "item 10"),
+        (["--mesh-file", "m.npz", "--mesh", "2,1"], "item 14"),
         (["--mesh-file", "m.npz", "--model", "heat"], "wave model only"),
         (["--rebuild-eig-cache"], "item 11"),
         (["--eig-method", "sdc"], "item 11"),
@@ -215,8 +216,73 @@ def test_cli_refusals(argv, match, tmp_path):
 
 
 def test_cli_methods_not_ported_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_run.main(["--pc-variant", "block", "--nx", "8", "--nt", "9", "--platform", "cpu", "--out", str(tmp_path)])
+    """--mesh-file with --method woodbury: the default direct solve of a
+    triangle mesh is the eigenbasis solve, ROADMAP Queue A item 11."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is missing: no native host runtime")
+    from optimal_control_paradiag_torch import native
+
+    pts, tris = native.unit_square_mesh(4)
+    np.savez(tmp_path / "m.npz", points=pts, triangles=tris)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        t_run.main(["--mesh-file", str(tmp_path / "m.npz"), "--method", "woodbury", "--nt", "6",
+                    "--platform", "cpu", "--out", str(tmp_path)])
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["--dim", "2", "--nx", "6", "--nt", "8", "--rtol", "1e-10"],
+        ["--dim", "2", "--nx", "8", "--nt", "8", "--method", "woodbury"],
+        ["--dim", "2", "--nx", "8", "--nt", "8", "--method", "woodbury", "--pc-variant", "blockline"],
+        ["--model", "heat", "--dim", "2", "--nx", "8", "--nt", "8", "--method", "woodbury"],
+    ],
+    ids=["gmres-blockline", "tensor-gmres", "smw", "heat-tensor-gmres"],
+)
+def test_cli_2d_consistent_matches_jax(tmp_path, argv):
+    """The CLI on the 2D consistent mass (its default mass at --dim 2):
+    the same record keys, iterations and error metrics as the JAX CLI's,
+    and the same solution file."""
+    rj, rt, dj, dt = _both_cli(tmp_path, argv)
+    assert set(rt) == set(rj) and set(rt["config"]) == set(rj["config"])
+    assert rt["iterations"] == rj["iterations"]
+    if "heat" in argv:
+        assert abs(rt["error_vs_analytic"] - rj["error_vs_analytic"]) <= 1e-10
+        _close(np.load(dj / "heat_solution.npz")["u"], np.load(dt / "heat_solution.npz")["u"], 1e-10)
+        return
+    assert rt["converged"] and rj["converged"]
+    assert abs(rt["error_aligned_metric"] - rj["error_aligned_metric"]) <= 1e-10
+    zj, zt = np.load(dj / "solution.npz"), np.load(dt / "solution.npz")
+    for k in ("u_out", "p_out"):
+        _close(zj[k], zt[k], 1e-10)
+
+
+@pytest.mark.parametrize("interior", [False, True], ids=["detected", "given"])
+def test_cli_mesh_file_matches_jax(tmp_path, interior):
+    """--mesh-file on a perturbed triangle mesh (an .npz of points,
+    triangles and, optionally, the interior mask): the GMRES auto route
+    (blockdense) through both CLIs, the same iterations, error metrics and
+    files, the mesh in the npz."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is missing: no native host runtime")
+    from optimal_control_paradiag_torch import native
+    from optimal_control_paradiag_torch.fem.general import boundary_nodes
+
+    pts, tris = native.unit_square_mesh(6)
+    bnd = boundary_nodes(pts.shape[0], tris)
+    pts[~bnd] += np.random.default_rng(0).uniform(-0.03, 0.03, size=pts[~bnd].shape)
+    extra = {"interior": ~bnd} if interior else {}
+    np.savez(tmp_path / "mesh.npz", points=pts, triangles=tris, **extra)
+    rj, rt, dj, dt = _both_cli(tmp_path, ["--mesh-file", str(tmp_path / "mesh.npz"), "--nt", "8", "--rtol", "1e-10"])
+    assert set(rt) == set(rj) and set(rt["config"]) == set(rj["config"])
+    assert rt["config"]["dim"] == rj["config"]["dim"] == "2"
+    assert rt["iterations"] == rj["iterations"] and rt["converged"] and rj["converged"]
+    assert abs(rt["error_aligned_metric"] - rj["error_aligned_metric"]) <= 1e-10
+    zj, zt = np.load(dj / "solution.npz"), np.load(dt / "solution.npz")
+    assert set(zt.files) == set(zj.files)
+    np.testing.assert_array_equal(zt["triangles"], zj["triangles"])
+    for k in ("u_out", "p_out"):
+        _close(zj[k], zt[k], 1e-10)
 
 
 def test_cli_platform_auto_needs_the_card(tmp_path):

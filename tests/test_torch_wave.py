@@ -117,6 +117,15 @@ def test_port_imports_no_jax(tmp_path):
         "assert h.relative_residual_f64(s) < 1e-10\n"
         "s = h.solve(SolverConfig(method='gmres', rtol=1e-10))\n"
         "assert h.relative_residual_f64(s) < 1e-8\n"
+        "q = WaveControlProblem(ProblemConfig(N_x=6, N_t=6, dim=2), device='cpu')\n"
+        "assert q.relative_residual_f64(q.solve(SolverConfig(method='woodbury'))) < 1e-8\n"
+        "assert bool(q.solve(SolverConfig(rtol=1e-8)).result.converged)\n"
+        "from optimal_control_paradiag_torch import native\n"
+        "from optimal_control_paradiag_torch.fem.general import make_general_space\n"
+        "pts, tris = native.unit_square_mesh(5)\n"
+        "g = WaveControlProblem(ProblemConfig(N_x=5, N_t=6, dim=2), device='cpu',\n"
+        "                       space=make_general_space(pts, tris, device='cpu'))\n"
+        "assert bool(g.solve(SolverConfig(rtol=1e-8, pc_variant='blockband')).result.converged)\n"
         "import optimal_control_paradiag_torch.io.writers, optimal_control_paradiag_torch.viz.plotting\n"
         "import optimal_control_paradiag_torch.utils.timing, optimal_control_paradiag_torch.utils.monitor\n"
         "import optimal_control_paradiag_torch.utils.checkpoint\n"
@@ -154,8 +163,26 @@ def test_default_device_is_cuda():
     ids=["gmres-2d-consistent", "gmres-cocg-jacobi", "2d-consistent", "gmres-block"],
 )
 def test_unported_paths_raise(cls, cfg, solver):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        cls(cfg, device="cpu").solve(solver)
+    """The solves of ROADMAP Queue A items 9 and 10 run as in the JAX
+    package: the same result record (iterations, or None for the direct
+    API) and the same u to 1e-10. Jacobi-COCG on a structured space fails
+    in both packages (JAX: AttributeError, no ``mass_diag``; the port:
+    ValueError)."""
+    jcfg = J.ProblemConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "dtype"})
+    jp, tp = _pair(jcfg)
+    jsolver = J.SolverConfig(**dataclasses.asdict(solver))
+    if solver.inner == "cocg_jacobi":
+        with pytest.raises(AttributeError):
+            jp.solve(jsolver)
+        with pytest.raises(ValueError, match="general"):
+            tp.solve(solver)
+        return
+    js, ts = jp.solve(jsolver), tp.solve(solver)
+    assert (ts.result is None) == (js.result is None)
+    if ts.result is not None:
+        assert int(ts.result.iterations) == int(js.result.iterations)
+    u = np.asarray(js.u)
+    assert np.abs(ts.u.numpy() - u).max() <= 1e-10 * np.abs(u).max()
 
 
 def test_config_validation_matches_jax():
