@@ -139,7 +139,35 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     float64, blockline) and ``--mesh-file`` on an .npz mesh written to a
     temporary directory: converged, iterations and seconds printed;
 31. batched tensor GMRES (N_x = N_t = 32, float64, B = 3): per-lane
-    iterations equal to the sequential solves', each lane within 1e-10.
+    iterations equal to the sequential solves', each lane within 1e-10;
+32. the pencil eigenbases of the JAX bench's perturbed N = 32 mesh (n =
+    961, float32): 'host', 'torch', 'device' (cuSOLVER) and 'sdc'
+    (``base_size=256``, so it splits), each with its setup seconds,
+    ||K V - M V lam|| / ||K|| (<= 5e-3), ||V^T M V - I|| (<= 5e-3) and its
+    eigenvalues' distance from the host float64 ones (<= 1e-3 lam_max); and
+    the accuracy of torch's float32 CUDA ``eigh`` of the standard form at
+    n = 400 (cuSOLVER's Jacobi solver) and 961 against the port's route;
+33. the JAX bench's production tier of that mesh (bench.py
+    stage_unstructured): eig GMRES on the host basis (N_t = 32, rtol 1e-5,
+    maxiter 20): <= 2 iterations, float64 oracle <= 5e-4, timed;
+34. the wall through the entry point: N = 144 (n = 20449), N_t = 64,
+    float32, ``WaveControlProblem(...).solve(SolverConfig(method=
+    'woodbury'))``, whose 'auto' basis is 'device': the setup seconds by
+    phase, Richardson steps, converged, the float64 oracle (<= 5e-4), the
+    cached solve's device ms against its roofline and host wall, the peak
+    device memory;
+35. SDC on the card at N = 72 (n = 5041, default ``base_size=2048``):
+    ``last_stats``, the gates of phase 32 against the 'device' basis, and
+    the 8-step Richardson solve on the SDC basis (oracle <= 5e-4);
+36. the CLI's ``--rebuild-eig-cache --nx 48 --eig-method device`` into a
+    temporary directory, its file loaded back with its quality ('f32'),
+    and the autodiff-Lagrangian 'direct' solve (1D, N_x = N_t = 8, float64)
+    on the card and the CPU, u <= 1e-10 apart.
+
+``python3 chip_smoke.py --sdc-wall`` instead times SDC once at the wall
+(n = 20449): the 'device' and the 'sdc' basis, the gates of phase 32
+between them, ``last_stats``, and the 8-step Richardson solve on the SDC
+basis at N_t = 64 (oracle <= 5e-4); it builds no kernel.
 
 It prints one JSON line per timing, then the kernels line, and last the
 device line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1502,6 +1530,270 @@ def nondiagonal_phases(torch, smi, flush):
     return None
 
 
+# The generalized-eigenbasis solve of triangle meshes (phases 32-36): the
+# gates of the JAX package's tests/test_sdc.py:51-79 for a float32 basis,
+# and its bench's stage_unstructured (bench.py:523-548: host basis, eig
+# GMRES, 1 iteration and rel_f64 1.99e-5 in its record) and
+# stage_unstructured_eig (bench.py:704-822: n = 20449, N_t = 64, gate 5e-4;
+# its SDC basis recorded 6.63e-5 at 8 steps).
+EIG_BASIS_MAX_RES = 5e-3  # ||K V - M V lam||_F / ||K||_F
+EIG_BASIS_MAX_ORTH = 5e-3  # ||V^T M V - I||_F
+EIG_BASIS_MAX_LAM = 1e-3  # max |lam - lam_ref| / lam_max
+EIG_GMRES = dict(rtol=1e-5, maxiter=20)
+EIG_GMRES_MAX_ITERS, EIG_MAX_REL = 2, 5e-4
+EIG_WALL_N, EIG_WALL_N_T = 144, 64  # n = 20449: 2,617,472 unknowns
+EIG_SDC_N = 72  # n = 5041, past the default base_size of 2048
+LAGRANGIAN_TOL = 1e-10
+
+
+def basis_gates(torch, basis, M, K, lam_ref) -> dict:
+    """The float32-basis gates of one pencil basis, in float64 on the card:
+    ``res`` = ||K V - M V lam|| / ||K||, ``orth`` = ||V^T M V - I||, ``lam``
+    = max |lam - lam_ref| / max lam_ref."""
+    import numpy as np
+
+    V = basis.V.double()
+    lam = torch.from_numpy(basis.lam).to(V.device)
+    MV = M @ V
+    res = float(torch.linalg.norm(K @ V - MV * lam[None, :]) / torch.linalg.norm(K))
+    G = V.mT @ MV
+    G.diagonal().sub_(1.0)
+    out = {"res": res, "orth": float(torch.linalg.norm(G)),
+           "lam": float(np.abs(basis.lam - lam_ref).max() / lam_ref.max())}
+    out["ok"] = out["res"] <= EIG_BASIS_MAX_RES and out["orth"] <= EIG_BASIS_MAX_ORTH and out["lam"] <= EIG_BASIS_MAX_LAM
+    return out
+
+
+def eig_richardson_roofline(n: int, N_t: int, steps: int) -> dict:
+    """Roofline of one Richardson solve over an n x n float32 basis: ``steps
+    + 1`` Woodbury applies, each two (2 N_t x n) @ (n x n) GEMMs (the
+    residual-side V^T and the solution-side V) that read V once; the
+    time-FFT, per-mode and matvec work is O(N_t n) and left out."""
+    gemms = 2 * (steps + 1)
+    return {"gemms": gemms, **roofline(gemms * (4 * n * n + 2 * 4 * 2 * N_t * n), gemms * 2 * (2 * N_t) * n * n)}
+
+
+def eigbasis_phases(torch, smi, flush):
+    """Phases 32-36 (module docstring): the pencil eigenbases of a triangle
+    mesh on the card and the solves they drive. Prints one JSON line per
+    result; returns None, or what failed."""
+    import contextlib
+    import io
+    import tempfile
+    import unittest.mock
+
+    from optimal_control_paradiag_torch import LagrangianWaveProblem, ProblemConfig, SolverConfig, WaveControlProblem
+    from optimal_control_paradiag_torch import run as cli_run
+    from optimal_control_paradiag_torch.fem.general import make_general_space
+    from optimal_control_paradiag_torch.models.wave import WaveSolution
+    from optimal_control_paradiag_torch.paradiag import eigbasis as eigbasis_mod
+    from optimal_control_paradiag_torch.paradiag.eigbasis import (
+        build_eig_basis,
+        build_eig_direct_fn,
+        build_eig_gmres_solver,
+        dense_pencil,
+        load_eig_basis,
+    )
+    from optimal_control_paradiag_torch.paradiag.sdc import sdc_eigh
+
+    f32 = torch.float32
+
+    def built(sp, method, **kw):
+        """(basis, its setup seconds by phase, the host wall seconds)."""
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        basis = build_eig_basis(sp, method=method, timings=timings, **kw)
+        torch.cuda.synchronize()
+        return basis, timings, time.perf_counter() - t0
+
+    def pencil64(sp):
+        M, K = dense_pencil(sp)
+        return M.double(), K.double()
+
+    # 32. the four bases at n = 961
+    pts, tris = perturbed_mesh(UNSTRUCTURED_N, UNSTRUCTURED_AMP, 0)
+    sp = make_general_space(pts, tris, dtype=f32, device=DEVICE)
+    M, K = pencil64(sp)
+    bases = {}
+    for method, kw in (("host", {}), ("torch", {}), ("device", {}), ("sdc", {"base_size": 256})):
+        bases[method], phases, secs = built(sp, method, **kw)
+    lam_ref = bases["host"].lam
+    for method, basis in bases.items():
+        gates = basis_gates(torch, basis, M, K, lam_ref)
+        extra = {"sdc_stats": {k: v for k, v in sdc_eigh.last_stats.items() if k != "ns_iters"}} if method == "sdc" else {}
+        print(json.dumps({"phase": "eig_basis", "N": UNSTRUCTURED_N, "n": sp.n, "method": method,
+                          "quality": basis.quality, **gates, "gates": [EIG_BASIS_MAX_RES, EIG_BASIS_MAX_ORTH,
+                                                                       EIG_BASIS_MAX_LAM], **extra}), flush=True)
+        if not gates["ok"]:
+            return f"the {method!r} basis at n = {sp.n}: {gates}"
+    # torch's float32 CUDA eigh at n <= 512 is cuSOLVER's Jacobi syevj: its
+    # standard-form accuracy against syevd's (n = 961) and the port's route
+    out = {}
+    for N in (21, UNSTRUCTURED_N):
+        jsp = make_general_space(*perturbed_mesh(N, UNSTRUCTURED_AMP, 0), dtype=f32, device=DEVICE)
+        Mj, Kj = dense_pencil(jsp)
+        L = torch.linalg.cholesky(Mj)
+        S = torch.linalg.solve_triangular(L, torch.linalg.solve_triangular(L, Kj, upper=False).mT, upper=False).mT
+        S = 0.5 * (S + S.mT)
+        for label, (lam_s, Q_s) in (("torch_eigh", torch.linalg.eigh(S)), ("port_eigh", eigbasis_mod._eigh(S))):
+            Sd, Qd, ld = S.double(), Q_s.double(), lam_s.double()
+            G = Qd.mT @ Qd
+            G.diagonal().sub_(1.0)
+            out[f"n{jsp.n}_{label}"] = {"res": float(torch.linalg.norm(Sd @ Qd - Qd * ld) / torch.linalg.norm(Sd)),
+                                        "orth": float(torch.linalg.norm(G))}
+    print(json.dumps({"phase": "eigh_jacobi_range", "dtype": "float32", **out, "card": smi}), flush=True)
+    for method in ("host", "torch", "device", "sdc"):  # setup seconds, rebuilt warm (first calls load libraries)
+        _, phases, secs = built(sp, method, **({"base_size": 256} if method == "sdc" else {}))
+        print(json.dumps({"phase": "eig_basis_setup", "n": sp.n, "method": method, "seconds": secs,
+                          "phases_s": phases, "card": smi}), flush=True)
+    del M, K
+
+    # 33. the JAX bench's production tier: eig GMRES on the host basis
+    up = WaveControlProblem(ProblemConfig(N_x=UNSTRUCTURED_N, N_t=UNSTRUCTURED_N_T, dim=2, dtype=f32), device=DEVICE,
+                            space=sp)
+    solve = build_eig_gmres_solver(up.operator, bases["host"], with_result=True, **EIG_GMRES)
+    x, res = solve(up.rhs)
+    its = int(res.iterations)
+    rel = up.relative_residual_f64(WaveSolution(u=x[0], p=x[1], result=res))
+    ms = timed(torch, smi, flush, "eig_gmres_solve", lambda: solve(up.rhs), 5, 2, n=sp.n, N_t=UNSTRUCTURED_N_T)
+    wall, _, _ = wall_ms(torch, lambda: solve(up.rhs), 5, 2)
+    print(json.dumps({"phase": "unstructured_eig_gmres", "N": UNSTRUCTURED_N, "n": sp.n, "N_t": UNSTRUCTURED_N_T,
+                      "dtype": "float32", "eig_method": "host", **EIG_GMRES, "iterations": its,
+                      "converged": bool(res.converged), "relative_residual_f64": rel, "jax_bench_iterations": 1,
+                      "jax_bench_rel_f64": 1.99e-5, "gates": [EIG_GMRES_MAX_ITERS, EIG_MAX_REL], "ms": ms,
+                      "host_wall_ms": wall, "card": smi}), flush=True)
+    if not (its <= EIG_GMRES_MAX_ITERS and rel <= EIG_MAX_REL):
+        return f"eig GMRES at n = {sp.n}: {its} iterations, residual {rel:.3e}"
+    del up, solve, bases, sp
+
+    # 34. the wall through the entry point: the 'auto' (cuSOLVER) basis
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pts, tris = perturbed_mesh(EIG_WALL_N, UNSTRUCTURED_AMP, 0)
+    t0 = time.perf_counter()
+    wsp = make_general_space(pts, tris, dtype=f32, device=DEVICE)
+    wp = WaveControlProblem(ProblemConfig(N_x=EIG_WALL_N, N_t=EIG_WALL_N_T, dim=2, dtype=f32), device=DEVICE,
+                            space=wsp)
+    torch.cuda.synchronize()
+    problem_s = time.perf_counter() - t0
+    wcfg = SolverConfig(method="woodbury")
+    t0 = time.perf_counter()
+    sol = wp.solve(wcfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    steps, conv = int(sol.result.iterations), bool(sol.result.converged)
+    rel = wp.relative_residual_f64(sol)
+    run = wp.make_solver_fn(wcfg)
+    ms = timed(torch, smi, flush, "eig_richardson_wall", lambda: run(wp.rhs), 5, 2, n=wsp.n, N_t=EIG_WALL_N_T)
+    wall, _, _ = wall_ms(torch, lambda: run(wp.rhs), 5, 2)
+    bound = eig_richardson_roofline(wsp.n, EIG_WALL_N_T, steps)
+    print(json.dumps({"phase": "eig_wall_entry_point", "N": EIG_WALL_N, "n": wsp.n, "N_t": EIG_WALL_N_T,
+                      "unknowns": 2 * EIG_WALL_N_T * wsp.n, "dtype": "float32", "eig_method": "auto",
+                      "quality": wp._eig_basis.quality, "setup_s": wp.eig_setup_s, "problem_setup_s": problem_s,
+                      "first_solve_s": first_s, "steps": steps, "converged": conv, "relative_residual_f64": rel,
+                      "record_relative_residual": float(sol.result.residual_norm / torch.linalg.norm(wp.rhs).cpu()),
+                      "gate": EIG_MAX_REL, "jax_bench_sdc_rel_f64_8_steps": 6.63e-5, "ms": ms, **bound,
+                      "ms_over_bound": ms / bound["bound_ms"], "host_wall_ms": wall,
+                      "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi}), flush=True)
+    if not (conv and rel <= EIG_MAX_REL):
+        return f"the wall (n = {wsp.n}): converged {conv} in {steps} steps, residual {rel:.3e}"
+    del wp, wsp, sol, run
+    torch.cuda.empty_cache()
+
+    # 35. SDC on the card at n = 5041, against the 'device' basis
+    pts, tris = perturbed_mesh(EIG_SDC_N, UNSTRUCTURED_AMP, 0)
+    ssp = make_general_space(pts, tris, dtype=f32, device=DEVICE)
+    dev_basis, dev_phases, dev_s = built(ssp, "device")
+    sdc_basis, sdc_phases, sdc_s = built(ssp, "sdc")
+    stats = {k: v for k, v in sdc_eigh.last_stats.items()}
+    M, K = pencil64(ssp)
+    gates = basis_gates(torch, sdc_basis, M, K, dev_basis.lam)
+    dev_gates = basis_gates(torch, dev_basis, M, K, dev_basis.lam)
+    del M, K
+    sp_ = WaveControlProblem(ProblemConfig(N_x=EIG_SDC_N, N_t=EIG_WALL_N_T, dim=2, dtype=f32), device=DEVICE,
+                             space=ssp)
+    rels = {}
+    for label, basis, steps in (("sdc", sdc_basis, 8), ("device", dev_basis, 2)):
+        x, rec_rel = build_eig_direct_fn(sp_.operator, basis, steps=steps, with_residual=True)(sp_.rhs, basis.V)
+        rels[label] = (steps, sp_.relative_residual_f64(WaveSolution(u=x[0], p=x[1], result=None)), float(rec_rel))
+    print(json.dumps({"phase": "sdc_on_card", "N": EIG_SDC_N, "n": ssp.n, "base_size": 2048, "sdc_s": sdc_s,
+                      "sdc_phases_s": sdc_phases, "device_s": dev_s, "device_phases_s": dev_phases,
+                      "sdc_vs_device": gates, "device_self": dev_gates, "last_stats": stats,
+                      "richardson": {k: {"steps": v[0], "relative_residual_f64": v[1], "record": v[2]}
+                                     for k, v in rels.items()},
+                      "gate": EIG_MAX_REL, "card": smi}), flush=True)
+    if not (gates["ok"] and stats["splits"] >= 1 and rels["sdc"][1] <= EIG_MAX_REL):
+        return f"SDC at n = {ssp.n}: {gates}, splits {stats['splits']}, 8-step residual {rels['sdc'][1]:.3e}"
+    del sp_, ssp, dev_basis, sdc_basis
+
+    # 36. the CLI's eigenbasis cache, and the Lagrangian oracle on the card
+    with tempfile.TemporaryDirectory() as tmp, unittest.mock.patch.object(cli_run, "EIG_CACHE_DIR", tmp):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = cli_run.main(["--rebuild-eig-cache", "--nx", "48", "--eig-method", "device", "--out", tmp])
+        secs = time.perf_counter() - t0
+        pts, tris = perturbed_mesh(48, UNSTRUCTURED_AMP, 0)
+        loaded = load_eig_basis(rec["path"], make_general_space(pts, tris, dtype=f32, device=DEVICE))
+        print(json.dumps({"phase": "cli_rebuild_eig_cache", **{k: v for k, v in rec.items() if k != "path"},
+                          "file_mb": os.path.getsize(rec["path"]) / 1e6, "loaded_quality": loaded.quality,
+                          "seconds": secs, "card": smi}), flush=True)
+        if not (rec["n"] == 47 * 47 and loaded.quality == "f32" == rec["quality"]):
+            return f"--rebuild-eig-cache: {rec}, loaded quality {loaded.quality}"
+    lag = {}
+    for dev in (DEVICE, "cpu"):
+        lp = LagrangianWaveProblem(ProblemConfig(N_x=8, N_t=8, scaled=False), device=dev)
+        ls = lp.solve()
+        lag[dev] = (ls.u.cpu(), lp.error_vs_analytic(ls), bool(ls.result.converged))
+    du = rel_err(torch, lag[DEVICE][0], lag["cpu"][0])
+    print(json.dumps({"phase": "lagrangian_card_vs_cpu", "N_x": 8, "N_t": 8, "dtype": "float64", "u_rel": du,
+                      "error_vs_analytic": [lag[DEVICE][1], lag["cpu"][1]], "tol": LAGRANGIAN_TOL}), flush=True)
+    if not (du <= LAGRANGIAN_TOL and lag[DEVICE][2] and abs(lag[DEVICE][1] - lag["cpu"][1]) <= LAGRANGIAN_TOL):
+        return f"Lagrangian card vs CPU: u {du:.3e} apart, errors {lag[DEVICE][1]} / {lag['cpu'][1]}"
+    return None
+
+
+def sdc_wall(torch, smi) -> int:
+    """``--sdc-wall``: the 'device' and 'sdc' bases of the wall mesh (n =
+    20449), the gates of phase 32 between them, SDC's ``last_stats``, and
+    the 8-step Richardson solve on the SDC basis (N_t = 64)."""
+    from optimal_control_paradiag_torch import ProblemConfig, WaveControlProblem
+    from optimal_control_paradiag_torch.fem.general import make_general_space
+    from optimal_control_paradiag_torch.models.wave import WaveSolution
+    from optimal_control_paradiag_torch.paradiag.eigbasis import build_eig_basis, build_eig_direct_fn, dense_pencil
+    from optimal_control_paradiag_torch.paradiag.sdc import sdc_eigh
+
+    pts, tris = perturbed_mesh(EIG_WALL_N, UNSTRUCTURED_AMP, 0)
+    sp = make_general_space(pts, tris, dtype=torch.float32, device=DEVICE)
+    out = {}
+    for method in ("device", "sdc"):
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        basis = build_eig_basis(sp, method=method, timings=timings)
+        torch.cuda.synchronize()
+        out[method] = (basis, time.perf_counter() - t0, timings, torch.cuda.max_memory_allocated() / 1e9)
+    M, K = (A.double() for A in dense_pencil(sp))
+    gates = basis_gates(torch, out["sdc"][0], M, K, out["device"][0].lam)
+    del M, K
+    torch.cuda.empty_cache()
+    prob = WaveControlProblem(ProblemConfig(N_x=EIG_WALL_N, N_t=EIG_WALL_N_T, dim=2, dtype=torch.float32),
+                              device=DEVICE, space=sp)
+    basis = out["sdc"][0]
+    x, rec = build_eig_direct_fn(prob.operator, basis, steps=8, with_residual=True)(prob.rhs, basis.V)
+    rel = prob.relative_residual_f64(WaveSolution(u=x[0], p=x[1], result=None))
+    stats = dict(sdc_eigh.last_stats)
+    print(json.dumps({"phase": "sdc_wall", "N": EIG_WALL_N, "n": sp.n, "N_t": EIG_WALL_N_T,
+                      **{f"{m}_s": v[1] for m, v in out.items()}, **{f"{m}_phases_s": v[2] for m, v in out.items()},
+                      **{f"{m}_peak_device_gb": v[3] for m, v in out.items()}, "sdc_vs_device": gates,
+                      "last_stats": stats, "richardson_8_steps_relative_residual_f64": rel,
+                      "richardson_record": float(rec), "gate": EIG_MAX_REL, "card": smi}), flush=True)
+    if not (gates["ok"] and rel <= EIG_MAX_REL):
+        return fail(f"SDC at the wall: {gates}, 8-step residual {rel:.3e}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1544,6 +1836,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    if "--sdc-wall" in sys.argv[1:]:
+        code = sdc_wall(torch, smi)
+        if code == 0:
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                     "count": torch.cuda.device_count()}}), flush=True)
+        return code
 
     # 2. build both sources and the measurement variants, all at once
     t0 = time.perf_counter()
@@ -1961,6 +2259,9 @@ def main() -> int:
     if err:
         return fail(err)
     err = nondiagonal_phases(torch, smi, flush)
+    if err:
+        return fail(err)
+    err = eigbasis_phases(torch, smi, flush)
     if err:
         return fail(err)
 

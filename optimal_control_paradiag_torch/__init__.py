@@ -33,6 +33,15 @@ diagonalized coordinates and ``method='direct'`` a dense LU.
 n)`` at once, every layer taking the leading axis; a batched kernel solve is
 one launch.
 
+On a triangle mesh (``fem/general.py``) the direct solve runs over the
+mesh's generalized eigenbasis (``paradiag/eigbasis.py``; pencil eigensolvers
+on the host, on the card by cuSOLVER, or by the blocked spectral
+divide-and-conquer of ``paradiag/sdc.py`` over ``ops/blocked.py``). The
+reference's prototype derivation, the KKT system as the autodiff gradient of
+the discrete Lagrangian, is ``models/wave_lagrangian.py``, and the naive
+dense assembly of the all-at-once matrix the test oracle
+``ops/dense_oracle.py``.
+
 The sine transform is the dense matmul, the FFT or its four-step matmul
 factorization (``ProblemConfig.dst_method``), the time transforms
 ``torch.fft`` (plain or packed), a DFT matmul or the four-step factorization
@@ -51,11 +60,16 @@ from optimal_control_paradiag_torch.config import (
 )
 from optimal_control_paradiag_torch.models.heat import HeatControlProblem
 from optimal_control_paradiag_torch.models.wave import WaveControlProblem
+from optimal_control_paradiag_torch.models.wave_lagrangian import LagrangianWaveProblem
+from optimal_control_paradiag_torch.paradiag.eigbasis import EigBasisSpace, build_eig_basis
 
 __all__ = [
+    "EigBasisSpace",
     "HeatControlProblem",
+    "LagrangianWaveProblem",
     "ProblemConfig",
     "SolverConfig",
     "WaveControlProblem",
+    "build_eig_basis",
     "reference_1d_default",
 ]

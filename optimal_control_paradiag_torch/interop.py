@@ -3,7 +3,8 @@
 The system has no weights: its state is the two configs and the nodal data
 (``f, g, u0, u1`` for the wave family, ``f, g, u0`` for the heat family),
 and, for a problem on a triangle mesh, the mesh (``points``, ``triangles``
-and, where given, the ``interior`` mask). These functions rebuild the port's
+and, where given, the ``interior`` mask) and the mesh's pencil eigenbasis
+(``lam``, ``V``), its one expensive setup artifact. These functions rebuild the port's
 objects from plain dicts (``dataclasses.asdict`` of the JAX configs) and
 numpy arrays, so the two packages can run on identical inputs. Nothing here imports JAX: a JAX
 dtype arrives as anything ``numpy.dtype`` understands (its name, or the
@@ -21,6 +22,7 @@ from optimal_control_paradiag_torch.config import ProblemConfig, SolverConfig
 from optimal_control_paradiag_torch.fem.general import GeneralP1Space, make_general_space
 from optimal_control_paradiag_torch.models.heat import HeatControlProblem
 from optimal_control_paradiag_torch.models.wave import WaveControlProblem
+from optimal_control_paradiag_torch.utils.constants import to_device
 
 _TORCH_OF_NP = {"float32": torch.float32, "float64": torch.float64}
 
@@ -78,6 +80,23 @@ def heat_problem_from_jax(
     numpy arrays; f and u0 scaled by sqrt(gamma), as the JAX package stores
     them)."""
     return HeatControlProblem(_config(problem_fields), device=device, data=data)
+
+
+def eig_basis_from_arrays(space, lam, V, quality: str = "f32"):
+    """The port's :class:`paradiag.eigbasis.EigBasisSpace` over ``space``
+    (a :class:`fem.general.GeneralP1Space`) from a pencil eigenbasis as
+    numpy arrays: ``lam`` (n,) and ``V`` (n, n), such as the JAX package's
+    ``EigBasisSpace`` holds and its ``save_eig_basis`` writes. ``V`` goes to
+    the space's device in its dtype; ``quality`` is the basis grade
+    (``'f64'``, ``'f32'``, ``'f32_sdc'``), which the JAX files do not
+    carry."""
+    from optimal_control_paradiag_torch.paradiag.eigbasis import EigBasisSpace
+
+    V = np.asarray(V)
+    if V.shape != (space.n, space.n):
+        raise ValueError(f"basis shape {V.shape} does not match space n={space.n}")
+    return EigBasisSpace(base=space, lam=np.asarray(lam, np.float64), V=to_device(V, space.dtype, space.device),
+                         quality=quality)
 
 
 def solver_from_jax(solver_fields: Mapping) -> SolverConfig:

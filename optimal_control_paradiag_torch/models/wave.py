@@ -9,9 +9,12 @@ the solve, and validation against the manufactured solution. Methods:
 - ``'woodbury'``, the direct solve, with ``polish``: the rank-4 Woodbury
   identity where the sine transform diagonalizes the space; on the 2D
   consistent mass GMRES preconditioned by the exact solve of its tensor-mass
-  surrogate (``paradiag/woodbury2d.py``), or with ``pc_variant='blockline'``
-  (structured) / ``'blockband'`` (unstructured meshes) the
-  Sherman-Morrison-Woodbury solve over an exact circulant factorization;
+  surrogate (``paradiag/woodbury2d.py``); on a triangle mesh the same
+  identity over the mesh's pencil eigenbasis (``paradiag/eigbasis.py``),
+  inside GMRES up to n = 2000 and as Richardson steps above; with
+  ``pc_variant='blockline'`` (structured) / ``'blockband'`` (unstructured
+  meshes) the Sherman-Morrison-Woodbury solve over an exact circulant
+  factorization;
 - ``'spectral'``: GMRES in ParaDiag-diagonalized coordinates;
 - ``'minres'``: MINRES on the block-row-swapped symmetric system;
 - ``'direct'``: dense LU of the assembled matrix (small problems).
@@ -19,15 +22,14 @@ the solve, and validation against the manufactured solution. Methods:
 :meth:`WaveControlProblem.make_batched_solver_fn` solves B systems at once.
 A problem takes a structured space (1D, 2D lumped or consistent mass) from
 its config, or any prebuilt space, such as a
-:class:`fem.general.GeneralP1Space` on a triangle mesh. What the port does
-not have yet (the eigenbasis solve of unstructured meshes) raises
-``NotImplementedError`` naming its ROADMAP item.
+:class:`fem.general.GeneralP1Space` on a triangle mesh.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import warnings
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -35,12 +37,19 @@ import torch
 
 from optimal_control_paradiag_torch.config import ProblemConfig, SolverConfig
 from optimal_control_paradiag_torch.fem.space import P1Space, make_space
-from optimal_control_paradiag_torch.krylov.gmres import gmres, gmres_batched
+from optimal_control_paradiag_torch.krylov.gmres import GmresResult, gmres, gmres_batched
 from optimal_control_paradiag_torch.krylov.minres import minres
 from optimal_control_paradiag_torch.models.analytic import manufactured
 from optimal_control_paradiag_torch.ops.allatonce import build_operator, build_rhs, dense_lu_solver
 from optimal_control_paradiag_torch.paradiag.blockband import band_profile, blockband_entries
 from optimal_control_paradiag_torch.paradiag.blockline import blockline_entries
+from optimal_control_paradiag_torch.paradiag.eigbasis import (
+    RICHARDSON_MIN_N,
+    build_eig_basis,
+    build_eig_direct_fn,
+    build_eig_gmres_solver,
+    default_richardson_steps,
+)
 from optimal_control_paradiag_torch.paradiag.inner import (
     make_cocg_inner_solver,
     make_dst_inner_solver,
@@ -78,7 +87,11 @@ class WaveControlProblem:
     ``space``: a prebuilt space in place of the structured one of the
     config, e.g. a :class:`fem.general.GeneralP1Space` on a triangle mesh;
     it must be 2D (``config.N_x`` then plays no part in the geometry) and
-    lie on ``device``."""
+    lie on ``device``.
+
+    On a triangle mesh above n = 2000 the direct solve builds the mesh's
+    pencil eigenbasis once and keeps it (``_eig_basis``; the seconds of its
+    setup phases in ``eig_setup_s``), whatever solver configs follow."""
 
     def __init__(self, config: ProblemConfig, device="cuda", data: Optional[Dict] = None, space=None):
         self.config = config
@@ -103,6 +116,8 @@ class WaveControlProblem:
             for name in ("f", "g", "u0", "u1")
         }
         self._solver_cache: Dict[SolverConfig, callable] = {}
+        self._eig_basis = None
+        self.eig_setup_s: Dict[str, float] = {}
 
     # ------------------------------------------------------------------ data
 
@@ -182,6 +197,8 @@ class WaveControlProblem:
 
             return run
         if not self.space.diagonalizable:
+            if self._eig_richardson_route(solver):
+                return self._make_eig_richardson_solver(solver)
             wb = self._nondiagonal_direct_solver(solver)
         elif solver.use_pallas:
             from optimal_control_paradiag_torch.paradiag.cuda_woodbury import (
@@ -206,10 +223,12 @@ class WaveControlProblem:
         transform does not diagonalize, as the JAX package routes it: on the
         2D consistent mass GMRES preconditioned by the exact tensor-mass
         Woodbury solve (mesh-independent), or with ``pc_variant='blockline'``
-        the SMW solve over block-Thomas; on an unstructured mesh with
-        ``pc_variant='blockband'`` the SMW solve over the RCM-banded
-        factorization. The GMRES tolerance is ``solver.rtol`` below 1e-6,
-        else 1e-10 in float64 and 1e-5 in float32."""
+        the SMW solve over block-Thomas; on an unstructured mesh up to n =
+        2000 GMRES preconditioned by the exact eigenbasis Woodbury solve (1
+        iteration with a float64 basis, a mesh-independent handful with a
+        float32 one), or with ``pc_variant='blockband'`` the SMW solve over
+        the RCM-banded factorization. The GMRES tolerance is ``solver.rtol``
+        below 1e-6, else 1e-10 in float64 and 1e-5 in float32."""
         op = self.operator
         f64 = self.config.dtype == torch.float64
         tight = solver.rtol if solver.rtol < 1e-6 else (1e-10 if f64 else 1e-5)
@@ -217,12 +236,59 @@ class WaveControlProblem:
         if solver.pc_variant == ("blockline" if structured else "blockband"):
             return build_woodbury2d_solver(op, cap_rtol=tight)
         if not structured:
-            raise NotImplementedError(
-                "the default Woodbury solve of unstructured meshes (the generalized-eigenbasis "
-                "solve) is not ported yet: ROADMAP Queue A item 11; pc_variant='blockband' "
-                "selects the Sherman-Morrison-Woodbury solve over the banded factorization"
-            )
+            return build_eig_gmres_solver(op, rtol=tight)
         return build_tensor_gmres_solver(op, rtol=tight)
+
+    def _eig_richardson_route(self, solver: SolverConfig) -> bool:
+        """Whether the direct solve takes the eigenbasis Richardson route: a
+        triangle mesh above n = 2000 without ``pc_variant='blockband'``."""
+        return (not hasattr(self.space, "n1d") and solver.pc_variant != "blockband"
+                and self.space.n > RICHARDSON_MIN_N)
+
+    def _make_eig_richardson_solver(self, solver: SolverConfig):
+        """The direct solve of a large triangle mesh: the argument-form
+        Richardson solve over the pencil eigenbasis
+        (``eigbasis.build_eig_direct_fn``), ``default_richardson_steps(basis)
+        + solver.polish`` steps (0 for a float64 host basis, 2 for float32
+        LAPACK, 8 for divide and conquer). The basis is built once per
+        problem (``build_eig_basis``'s 'auto': cuSOLVER on the card).
+
+        The solve is not adaptive. Its record is a ``GmresResult`` with the
+        steps as its iteration count and the measured relative residual
+        ``||b - A_acc x|| / ||b||`` (times ``||b||`` as the residual norm),
+        converged when that is at most ``rtol`` (float64) or ``max(rtol,
+        5e-4)`` (float32: a float32 basis floors near 1e-4); reading it is
+        the solve's one host synchronization, and a solve that misses it
+        warns."""
+        if self._eig_basis is None:
+            self._eig_basis = build_eig_basis(self.space, timings=self.eig_setup_s)
+        basis = self._eig_basis
+        steps = default_richardson_steps(basis) + solver.polish
+        fn = build_eig_direct_fn(self.operator, basis, steps=steps, with_residual=True)
+        f64 = self.config.dtype == torch.float64
+        rtol_eig = solver.rtol if f64 else max(solver.rtol, 5e-4)
+
+        def run(b, x0=None):
+            x, rel = fn(b, basis.V)
+            bn = torch.linalg.norm(b.reshape(b.shape[:-3] + (-1,)), dim=-1)
+            rel_h, bn_h = torch.stack([rel, bn]).cpu()
+            res = GmresResult(
+                x=x,
+                iterations=torch.full(rel_h.shape, steps, dtype=torch.int64),
+                converged=rel_h <= rtol_eig,
+                residual_norm=rel_h * bn_h,
+                residual_history=(rel_h * bn_h)[..., None],
+            )
+            if not bool(torch.all(res.converged)):
+                warnings.warn(
+                    f"eig-basis Richardson ({steps} steps) measured relative residual "
+                    f"{float(rel_h.max()):.3e} > rtol {rtol_eig:.1e}; add polish steps, use float64, "
+                    "or rebuild the basis with method='host'",
+                    stacklevel=2,
+                )
+            return x, res
+
+        return run
 
     def _auto_variant(self, solver: SolverConfig):
         """``(variant, inner)`` of ``inner='auto'`` on a space the sine

@@ -14,14 +14,13 @@ constants, pc/complex dispatch, wall-clock prints, convergence sweep writing
   python -m optimal_control_paradiag_torch.run --model heat --sweep  # tau-order
   python -m optimal_control_paradiag_torch.run --dim 2                # 2D consistent mass
   python -m optimal_control_paradiag_torch.run --mesh-file mesh.npz   # a triangle mesh
+  python -m optimal_control_paradiag_torch.run --rebuild-eig-cache    # the N = 144 mesh's eigenbasis
 
 It runs on the CUDA card unless ``--platform cpu`` is given, in both dtypes
 (the JAX CLI picks the CPU for float64, which its TPU lacks). The sharded
-``--mesh`` runs (with or without ``--mesh-file``) and the eigenbasis cache
-are not ported yet and exit naming their ROADMAP item; so do the methods the port lacks
-(``NotImplementedError`` from the model). The JAX CLI's persistent
-compilation cache has no counterpart here but the kernels' build cache
-(``csrc/_build/``).
+``--mesh`` runs (with or without ``--mesh-file``) are not ported yet and
+exit naming their ROADMAP item. The JAX CLI's persistent compilation cache
+has no counterpart here but the kernels' build cache (``csrc/_build/``).
 """
 
 from __future__ import annotations
@@ -30,6 +29,9 @@ import argparse
 import json
 import os
 import time
+
+# Where --rebuild-eig-cache writes eig_basis_N{N}.npz (git-ignored).
+EIG_CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "artifacts", "cache")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,15 +94,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--rebuild-eig-cache",
         action="store_true",
-        help="(re)build the cached generalized-eigenbasis of the unstructured "
-        "bench stage (not ported yet: ROADMAP Queue A item 11)",
+        help="(re)build the cached generalized eigenbasis of the wall-size "
+        "unstructured bench mesh (artifacts/cache/eig_basis_N144.npz; n=20449 "
+        "interior DoFs, float32) and exit. --eig-method picks the backend; "
+        "--nx overrides the mesh size (N interior nodes per side = nx-1)",
     )
     p.add_argument(
         "--eig-method",
         default="auto",
         choices=("auto", "sdc", "torch", "host", "device"),
-        help="pencil-eigendecomposition backend of --rebuild-eig-cache and "
-        "unstructured solves (not ported yet: ROADMAP Queue A item 11)",
+        help="pencil-eigendecomposition backend of --rebuild-eig-cache and of the "
+        "sharded --mesh-file solve: 'device' = torch.linalg on the card (cuSOLVER), "
+        "'sdc' = blocked spectral divide-and-conquer on the card, 'torch'/'host' = "
+        "host LAPACK in float32/float64; 'auto' = device on the card, else torch",
     )
     p.add_argument("--out", default="out", help="output directory")
     p.add_argument("--write-vtk", action="store_true")
@@ -150,9 +156,7 @@ def main(argv=None):
             "user mesh"
         )
     if args.rebuild_eig_cache:
-        _exit_not_ported("--rebuild-eig-cache (the unstructured eigenbasis)", "11")
-    if args.eig_method != "auto":
-        _exit_not_ported("--eig-method (the unstructured eigenbasis)", "11")
+        return rebuild_eig_cache(args)
     if args.mesh:
         _exit_not_ported("--mesh (the sharded solve)", "14")
     # --nx default resolution: None means "not given" so per-mode defaults
@@ -245,6 +249,49 @@ def main(argv=None):
                 sol.result.residual_history, out=os.path.join(args.out, "residuals.png")
             )
     return record
+
+
+def rebuild_eig_cache(args):
+    """Build the eigenbasis of the JAX bench's wall-size mesh (the unit
+    square with N = ``--nx`` (default 144) cells per side, interior nodes
+    moved by ``default_rng(0).uniform(+-0.18/N)``, float32) with
+    ``--eig-method`` and save it to ``EIG_CACHE_DIR/eig_basis_N{N}.npz``,
+    where ``paradiag.eigbasis.load_eig_basis`` restores it. Prints and
+    returns the record."""
+    import numpy as np
+    import torch
+
+    from optimal_control_paradiag_torch import native
+    from optimal_control_paradiag_torch.fem.general import boundary_nodes, make_general_space
+    from optimal_control_paradiag_torch.paradiag.eigbasis import build_eig_basis, save_eig_basis
+    from optimal_control_paradiag_torch.utils.constants import resolve_device
+
+    try:
+        device = resolve_device("cpu" if args.platform == "cpu" else "cuda")
+    except RuntimeError as exc:
+        raise SystemExit(f"--platform {args.platform}: {exc} (--platform cpu)") from exc
+    N = args.nx if args.nx else 144
+    n = (N - 1) ** 2
+    method = args.eig_method
+    if method == "auto":
+        method = "device" if device.type == "cuda" else "torch"
+    print(f"building eig basis: N={N} (n={n} interior DoFs), method={method}, device={device}", flush=True)
+    pts, tris = native.unit_square_mesh(N, diagonal="left")
+    bnd = boundary_nodes(pts.shape[0], tris)
+    rng = np.random.default_rng(0)
+    pts = pts.copy()
+    pts[~bnd] += rng.uniform(-0.18 / N, 0.18 / N, size=pts[~bnd].shape)
+    sp = make_general_space(pts, tris, dtype=torch.float32, device=device)
+    phases = {}
+    t0 = time.time()
+    basis = build_eig_basis(sp, method=method, timings=phases)
+    t_build = time.time() - t0
+    os.makedirs(EIG_CACHE_DIR, exist_ok=True)
+    path = save_eig_basis(os.path.join(EIG_CACHE_DIR, f"eig_basis_N{N}.npz"), basis)
+    rec = {"N": N, "n": n, "method": method, "quality": basis.quality, "build_s": t_build,
+           "phases_s": phases, "path": path}
+    print(json.dumps(rec, indent=2))
+    return rec
 
 
 def run_heat(args, dtype, solver, device="cuda"):

@@ -25,11 +25,12 @@ def _fence(target) -> None:
 
 
 class StageTimer:
-    """Collects named stage durations; device work is fenced on the supplied
+    """Collects named stage durations, summed per name into ``records`` (a
+    new dict, or the caller's); device work is fenced on the supplied
     tensor (``fence=`` or ``out["fence"]`` inside the stage)."""
 
-    def __init__(self):
-        self.records: Dict[str, float] = {}
+    def __init__(self, records: Optional[Dict[str, float]] = None):
+        self.records: Dict[str, float] = {} if records is None else records
 
     @contextlib.contextmanager
     def stage(self, name: str, fence=None):

@@ -329,14 +329,15 @@ def test_unstructured_manufactured_convergence():
 @needs_native
 def test_structured_only_paths_refuse_unstructured():
     """tests/test_general.py:117; and the default unstructured Woodbury (the
-    eigenbasis solve) names its ROADMAP item."""
-    _, tp = _pair(5, 6)
+    eigenbasis solve, eig GMRES at this size) solves as JAX's, 1e-10."""
+    jp, tp = _pair(5, 6)
     with pytest.raises(ValueError, match="structured"):
         tp.solve(SolverConfig(pc_variant="blockline"))
     with pytest.raises(ValueError, match="structured"):
         tp.solve(SolverConfig(pc_variant="block"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tp.solve(SolverConfig(method="woodbury"))
+    sol, jsol = tp.solve(SolverConfig(method="woodbury")), jp.solve(J.SolverConfig(method="woodbury"))
+    _close(jsol.u, sol.u, 1e-10)
+    _close(jsol.p, sol.p, 1e-10)
     with pytest.raises(ValueError, match="lies on"):
         WaveControlProblem(ProblemConfig(N_x=5, N_t=6, dim=2), device="cpu",
                            space=dataclasses.replace(tp.space, device=torch.device("meta")))

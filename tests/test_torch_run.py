@@ -204,11 +204,9 @@ def test_cli_platform_x64_and_profile_flags():
         (["--mesh", "2,1"], "item 14"),
         (["--mesh-file", "m.npz", "--mesh", "2,1"], "item 14"),
         (["--mesh-file", "m.npz", "--model", "heat"], "wave model only"),
-        (["--rebuild-eig-cache"], "item 11"),
-        (["--eig-method", "sdc"], "item 11"),
         (["--model", "heat", "--method", "spectral", "--platform", "cpu"], "heat supports"),
     ],
-    ids=["mesh-sweep", "mesh", "mesh-file", "mesh-file-heat", "rebuild-eig-cache", "eig-method", "heat-spectral"],
+    ids=["mesh-sweep", "mesh", "mesh-file", "mesh-file-heat", "heat-spectral"],
 )
 def test_cli_refusals(argv, match, tmp_path):
     with pytest.raises(SystemExit, match=match):
@@ -217,16 +215,78 @@ def test_cli_refusals(argv, match, tmp_path):
 
 def test_cli_methods_not_ported_raise(tmp_path):
     """--mesh-file with --method woodbury: the default direct solve of a
-    triangle mesh is the eigenbasis solve, ROADMAP Queue A item 11."""
+    triangle mesh, the eigenbasis solve (eig GMRES at this size), runs as
+    the JAX CLI runs it (the same record and solution); with --mesh (the
+    sharded solve) it still exits naming ROADMAP Queue A item 14."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is missing: no native host runtime")
     from optimal_control_paradiag_torch import native
 
     pts, tris = native.unit_square_mesh(4)
     np.savez(tmp_path / "m.npz", points=pts, triangles=tris)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_run.main(["--mesh-file", str(tmp_path / "m.npz"), "--method", "woodbury", "--nt", "6",
-                    "--platform", "cpu", "--out", str(tmp_path)])
+    argv = ["--mesh-file", str(tmp_path / "m.npz"), "--method", "woodbury", "--nt", "6"]
+    rj, rt, dj, dt = _both_cli(tmp_path, argv)
+    assert set(rt) == set(rj) and rt["iterations"] is None is rj["iterations"] and rt["converged"]
+    assert abs(rt["error_aligned_metric"] - rj["error_aligned_metric"]) <= 1e-10
+    _close(np.load(dj / "solution.npz")["u_out"], np.load(dt / "solution.npz")["u_out"], 1e-10)
+    with pytest.raises(SystemExit, match="item 14"):
+        t_run.main(argv + ["--mesh", "2,1", "--platform", "cpu", "--out", str(tmp_path)])
+
+
+def _wall_mesh_space(N, dtype):
+    """The JAX package's --rebuild-eig-cache mesh at N (run.py:302-306 of
+    the JAX package): its GeneralP1Space in the JAX dtype."""
+    from optimal_control_paradiag_torch import native
+    from optimal_control_paradiag_torch.fem.general import boundary_nodes
+    from optimal_control_paradiag_tpu.fem.general import make_general_space as j_make_general_space
+
+    pts, tris = native.unit_square_mesh(N, diagonal="left")
+    bnd = boundary_nodes(pts.shape[0], tris)
+    pts = pts.copy()
+    pts[~bnd] += np.random.default_rng(0).uniform(-0.18 / N, 0.18 / N, size=pts[~bnd].shape)
+    return j_make_general_space(pts, tris, dtype=dtype), pts, tris
+
+
+@pytest.mark.parametrize("method", ["auto", "host", "torch", "device", "sdc"])
+def test_cli_rebuild_eig_cache(tmp_path, monkeypatch, method):
+    """--rebuild-eig-cache --eig-method M on the CPU at N = 8 (n = 49): the
+    file lands in the (monkeypatched) cache directory, carries the basis
+    grade, loads in both packages, and its eigenvalues match JAX's float64
+    host basis of the same mesh (float32 basis: 1e-5 of lam_max). 'auto' on
+    the CPU is 'torch'."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is missing: no native host runtime")
+    import jax.numpy as jnp
+
+    from optimal_control_paradiag_torch.interop import space_from_mesh
+    from optimal_control_paradiag_torch.paradiag.eigbasis import load_eig_basis
+    from optimal_control_paradiag_tpu.paradiag import eigbasis as j_eig
+
+    monkeypatch.setattr(t_run, "EIG_CACHE_DIR", str(tmp_path / "cache"))
+    rec = t_run.main(["--rebuild-eig-cache", "--nx", "8", "--eig-method", method, "--platform", "cpu",
+                      "--out", str(tmp_path / "out")])
+    path = tmp_path / "cache" / "eig_basis_N8.npz"
+    assert rec["path"] == str(path) and path.exists() and rec["n"] == 49
+    assert rec["method"] == ("torch" if method == "auto" else method)
+    assert rec["quality"] == ("f32_sdc" if method == "sdc" else "f32")
+    assert set(rec["phases_s"]) >= {"dense", "eigh", "back_transform"}
+    jsp, pts, tris = _wall_mesh_space(8, jnp.float32)
+    basis = load_eig_basis(str(path), space_from_mesh({"points": pts, "triangles": tris}, "float32", "cpu"))
+    assert basis.quality == rec["quality"] and basis.V.dtype == torch.float32
+    jb = j_eig.load_eig_basis(str(path), jsp)
+    np.testing.assert_array_equal(np.asarray(jb.V), basis.V.numpy())
+    j_lam = j_eig.build_eig_basis(_wall_mesh_space(8, jnp.float64)[0], method="host").lam
+    assert np.abs(basis.lam - j_lam).max() <= 1e-5 * j_lam.max()
+
+
+def test_cli_eig_method_is_accepted(tmp_path):
+    """--eig-method outside --rebuild-eig-cache: accepted, and used only by
+    the sharded --mesh-file solve, as in the JAX CLI (a structured run is
+    the same run)."""
+    rj, rt, _, _ = _both_cli(tmp_path, ["--eig-method", "sdc", "--nx", "6", "--nt", "7", "--rtol", "1e-8"])
+    assert rt["config"]["eig_method"] == rj["config"]["eig_method"] == "sdc"
+    assert rt["iterations"] == rj["iterations"] and rt["converged"]
+    assert abs(rt["error_aligned_metric"] - rj["error_aligned_metric"]) <= 1e-10
 
 
 @pytest.mark.parametrize(
