@@ -164,6 +164,31 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     and the autodiff-Lagrangian 'direct' solve (1D, N_x = N_t = 8, float64)
     on the card and the CPU, u <= 1e-10 apart.
 
+37-41. the sharded layer (``parallel/``) on a 1x1 grid of one NCCL rank
+    (the machine has one card, and NCCL refuses two ranks on one card), so
+    every stage move and reduction is issued as on a larger grid; halo
+    exchanges are not (an axis that one rank holds whole posts none), so
+    NCCL's ``batch_isend_irecv`` runs only under ``--cards N``. No scaling
+    claim. At ``bench_multichip.py``'s on-chip shape
+    (N_x = 2049, N_t = 1024, float32): the sharded wave Woodbury solve
+    against the unsharded one with the same 'dft' time transform (<= 1e-5
+    relative max-abs; float64 oracle <= 1.6e-3, the transform candidates'
+    gate), the sharded heat Woodbury solve likewise (<= 1e-5; <= 2.24e-2),
+    and ``shardmap_ops``' matvec (the layout's matvec) and its
+    reduce-scatter fulldiag preconditioner against the unsharded ones (<= 1e-6, <= 2e-4); on the reference run (80 x 81,
+    float64) sharded GMRES with ``fulldiag`` (rtol 1e-8: the unsharded
+    iteration count, 5, and x 1e-10 apart) and sharded MINRES (rtol 1e-10:
+    within one iteration, x 1e-8 apart, as ``tests/test_parallel.py``
+    holds them). Each route's collective counts from the layout's counter
+    (the direct solves: 6 all_to_all and 3 all_reduce, no all_gather) and
+    its device ms beside the unsharded solve's.
+
+``python3 chip_smoke.py --sharded`` runs phase 1 and phases 37-41 alone.
+``python3 chip_smoke.py --cards N`` (a machine with N cards) runs the
+sharded CLI (``run.py --mesh``) under ``torch.distributed.run``, one NCCL
+rank per card, on every grid of N ranks and on 1x1, for each route at
+the on-chip shape or the reference run, and gates each record's float64
+oracle residual (and the reference run's iteration counts).
 ``python3 chip_smoke.py --sdc-wall`` instead times SDC once at the wall
 (n = 20449): the 'device' and the 'sdc' basis, the gates of phase 32
 between them, ``last_stats``, and the 8-step Richardson solve on the SDC
@@ -352,11 +377,11 @@ def start_variant(source: str, *defines: str):
     ``defines`` (a measurement-only variant); returns (process, library
     path)."""
     from optimal_control_paradiag_torch.cuda_build import NVCC_FLAGS, _nvcc
+    from optimal_control_paradiag_torch.utils.compilation_cache import build_dir
 
     csrc = os.path.join(HERE, "optimal_control_paradiag_torch", "csrc")
     tag = "-".join(d.lower() for d in defines)
-    out = os.path.join(csrc, "_build", f"{os.path.splitext(source)[0]}-{tag}.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
+    out = os.path.join(build_dir(), f"{os.path.splitext(source)[0]}-{tag}.so")
     proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", out, os.path.join(csrc, source)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _VARIANT_BUILDS.append(proc)
@@ -1794,6 +1819,202 @@ def sdc_wall(torch, smi) -> int:
     return 0
 
 
+SHARDED = dict(N_x=2049, N_t=1024)  # bench_multichip.py:163-164, its on-chip shape: n = 2048, K = 513
+SHARDED_VS_UNSHARDED_TOL = 1e-5  # float32, relative max-abs: the same 'dft' pipeline, moves and reductions
+SHARDED_WAVE_MAX_REL = 2 * MAX_REL_RESIDUAL  # the 'dft' time transform: the transform candidates' gate
+SHARDED_REF = dict(rtol=1e-8)  # the reference run's GMRES (tests/test_parallel.py:22-36: same count, 1e-8)
+SHARDED_GMRES_X_TOL = 1e-10
+SHARDED_MINRES = dict(method="minres", rtol=1e-10, maxiter=200)
+SHARDED_MINRES_X_TOL = 1e-8  # tests/test_parallel.py:313-334
+SHARDMAP_MATVEC_TOL = 1e-6
+SHARDMAP_PC_TOL = 2e-4  # float32 split-real DFT + DST matmuls against the FFT fulldiag apply
+DIRECT_COLLECTIVES = {"all_to_all": 6, "all_reduce": 3}
+
+
+def sharded_phases(torch, smi, flush):
+    """Phases 37-41: the sharded layer on a 1x1 grid of one NCCL rank
+    (module docstring). Returns an error message or None."""
+    import math
+
+    import numpy as np
+
+    from optimal_control_paradiag_torch import (
+        HeatControlProblem,
+        ProblemConfig,
+        SolverConfig,
+        WaveControlProblem,
+        reference_1d_default,
+    )
+    from optimal_control_paradiag_torch.models.heat import HeatSolution
+    from optimal_control_paradiag_torch.models.wave import WaveSolution
+    from optimal_control_paradiag_torch.paradiag.pc import build_preconditioner
+    from optimal_control_paradiag_torch.paradiag.spectral import build_woodbury_solver
+    from optimal_control_paradiag_torch.parallel import multihost
+    from optimal_control_paradiag_torch.parallel.sharding import make_layout
+    from optimal_control_paradiag_torch.parallel.shardmap_ops import (
+        build_shardmap_matvec,
+        build_shardmap_preconditioner,
+    )
+    from optimal_control_paradiag_torch.parallel.solve import make_sharded_heat_solver, make_sharded_solver
+
+    with multihost.group_of_one(device="cuda", timeout_s=300):
+        layout = make_layout(1, 1)
+        grid = {"grid": [1, 1], "backend": torch.distributed.get_backend(), "card": smi}
+
+        def once(run, b):
+            layout.counts.clear()
+            x, res = run(b)
+            torch.cuda.synchronize()
+            return x, res, dict(layout.counts)
+
+        # 37-38. the direct solves at the on-chip shape, wave and heat
+        for family in ("wave", "heat"):
+            if family == "wave":
+                prob = WaveControlProblem(ProblemConfig(**SHARDED, dtype=torch.float32), device="cuda")
+                run, sh = make_sharded_solver(prob, SolverConfig(method="woodbury"), layout)
+                plain = build_woodbury_solver(prob.operator, refine=1, time_transform="dft")
+                residual = lambda x: prob.relative_residual_f64(WaveSolution(*prob._unscale(x), result=None))
+                gate = SHARDED_WAVE_MAX_REL
+            else:
+                prob = HeatControlProblem(ProblemConfig(**SHARDED, dtype=torch.float32), device="cuda")
+                run, sh = make_sharded_heat_solver(prob, SolverConfig(method="woodbury"), layout)
+                plain = prob.build_woodbury_solver(refine=1, time_transform="dft")
+                s = math.sqrt(prob.config.gamma)
+                residual = lambda x: prob.relative_residual_f64(HeatSolution(u=x[0] / s, p=x[1], result=None))
+                gate = HEAT_MAX_REL_RESIDUAL
+            if sh is None:
+                return f"the sharded {family} solve calls the on-chip shape uneven on a 1x1 grid"
+            b = sh.shard(prob.rhs)
+            x, _, counts = once(run, b)
+            x0 = plain(prob.rhs)
+            diff = rel_err(torch, x, x0)
+            rel, rel0 = residual(x), residual(x0)
+            ms = timed(torch, smi, flush, f"sharded_{family}_woodbury", lambda: run(b), **grid, **SHARDED)
+            ms0 = timed(torch, smi, flush, f"unsharded_{family}_woodbury_dft", lambda: plain(prob.rhs), **SHARDED)
+            print(json.dumps({"phase": f"sharded_{family}_woodbury", **SHARDED, "dtype": "float32", **grid,
+                              "collectives": counts, "rel_max_abs_vs_unsharded": diff,
+                              "tol": SHARDED_VS_UNSHARDED_TOL, "relative_residual_f64": rel,
+                              "unsharded_relative_residual_f64": rel0, "gate": gate,
+                              "ms_per_solve": ms, "unsharded_ms_per_solve": ms0}), flush=True)
+            if counts != DIRECT_COLLECTIVES:
+                return f"the sharded {family} Woodbury solve issued {counts}, not {DIRECT_COLLECTIVES}"
+            if not diff <= SHARDED_VS_UNSHARDED_TOL:
+                return f"the sharded {family} Woodbury solve is {diff:.3e} from the unsharded one"
+            if not (np.isfinite(rel) and rel <= gate):
+                return f"the sharded {family} Woodbury residual {rel:.3e} > {gate}"
+            del prob, run, plain, x, x0, b
+
+        # 39-40. GMRES (fulldiag) and MINRES on the reference run, float64
+        ref = WaveControlProblem(reference_1d_default(), device="cuda")
+        N_t, n = ref.rhs.shape[-2:]
+        for name, solver, x_tol in (("gmres_fulldiag", SolverConfig(**SHARDED_REF), SHARDED_GMRES_X_TOL),
+                                    ("minres", SolverConfig(**SHARDED_MINRES), SHARDED_MINRES_X_TOL)):
+            run, sh = make_sharded_solver(ref, solver, layout)
+            b = sh.shard(ref.rhs) if sh is not None else ref.rhs
+            x, res, counts = once(run, b)
+            want = ref.solve(solver)
+            x0 = torch.stack([want.u, want.p])
+            diff = rel_err(torch, x, x0)
+            its, its0 = int(res.iterations), int(want.result.iterations)
+            resid = float(ref.residual_norm(WaveSolution(*ref._unscale(x), result=res)))
+            ms = timed(torch, smi, None, f"sharded_{name}_reference", lambda: run(b), runs=5, warmup=1, **grid)
+            ms0 = timed(torch, smi, None, f"unsharded_{name}_reference", lambda: ref.solve(solver), runs=5, warmup=1)
+            print(json.dumps({"phase": f"sharded_{name}", "N_x": 80, "N_t": 81, "dtype": "float64", **grid,
+                              "iterations": its, "unsharded_iterations": its0, "converged": bool(res.converged),
+                              "rel_max_abs_vs_unsharded": diff, "tol": x_tol, "residual_norm": resid,
+                              "collectives": counts, "ms_per_solve": ms, "unsharded_ms_per_solve": ms0}), flush=True)
+            if counts.get("all_gather", 0):
+                return f"sharded {name} all-gathered: {counts}"
+            if not bool(res.converged) or (its != its0 if name.startswith("gmres") else abs(its - its0) > 1):
+                return f"sharded {name} took {its} iterations, the unsharded solve {its0}"
+            if not diff <= x_tol:
+                return f"sharded {name} is {diff:.3e} from the unsharded solve"
+
+        # 41. the explicit-collective matvec and preconditioner at the on-chip shape
+        prob = WaveControlProblem(ProblemConfig(**SHARDED, dtype=torch.float32), device="cuda")
+        op = prob.operator
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        r = torch.randn(op.shape, generator=gen, device="cuda", dtype=torch.float32)
+        mv, pc = build_shardmap_matvec(op, layout), build_shardmap_preconditioner(op, layout)
+        pc0 = build_preconditioner(op)
+        for name, fn, ref_fn, tol in (("matvec", mv, op.matvec, SHARDMAP_MATVEC_TOL),
+                                      ("preconditioner", pc, pc0, SHARDMAP_PC_TOL)):
+            layout.counts.clear()
+            y = fn(r)
+            torch.cuda.synchronize()
+            counts = dict(layout.counts)
+            err = rel_err(torch, y, ref_fn(r))
+            ms = timed(torch, smi, flush, f"shardmap_{name}", lambda: fn(r), **grid, **SHARDED)
+            ms0 = timed(torch, smi, flush, f"unsharded_{name}", lambda: ref_fn(r), **SHARDED)
+            print(json.dumps({"phase": f"shardmap_{name}", **SHARDED, "dtype": "float32", **grid,
+                              "collectives": counts, "rel_max_abs_vs_unsharded": err, "tol": tol,
+                              "ms": ms, "unsharded_ms": ms0}), flush=True)
+            if not err <= tol:
+                return f"the explicit-collective {name} is {err:.3e} from the unsharded one"
+        if torch.distributed.get_backend() != "nccl":
+            return "the sharded phases ran on another backend than NCCL"
+    return None
+
+
+def cards_phases(torch, smi, cards: int):
+    """``--cards N``: the sharded CLI on N cards (module docstring). Each
+    case runs once per grid; the record's timings are single host-wall
+    samples of the CLI's two solves, not a benchmark. Returns an error
+    message or None."""
+    import tempfile
+
+    big = ["--nx", str(SHARDED["N_x"]), "--nt", str(SHARDED["N_t"]), "--dtype", "float32"]
+    grids = [(1, 1)] + [(t, cards // t) for t in range(cards, 0, -1) if cards % t == 0]
+    # (name, CLI arguments, float64-oracle gate, iterations or None); each on every grid
+    cases = [
+        ("wave_woodbury", big + ["--method", "woodbury"], SHARDED_WAVE_MAX_REL, None),
+        ("wave_gmres_reference", ["--rtol", "1e-8"], 1e-10, 5),
+        ("heat_woodbury", big + ["--method", "woodbury", "--model", "heat"], HEAT_MAX_REL_RESIDUAL, None),
+        # N_t = 1022: uneven time blocks where the time axis has 4 ranks
+        ("wave_woodbury_uneven", ["--nx", "2049", "--nt", "1022", "--dtype", "float32", "--method", "woodbury"],
+         SHARDED_WAVE_MAX_REL, None),
+        # MINRES's tail at rtol 1e-10 sits on a plateau near the threshold:
+        # the reductions' order moves it by two iterations (20 or 22 on the
+        # CPU), so its count is printed and its residual gated
+        ("wave_minres_reference", ["--method", "minres", "--rtol", "1e-10"], 1e-8, None),
+        ("wave_2d_consistent", ["--dim", "2", "--nx", "192", "--nt", "128", "--dtype", "float32", "--method",
+                                "woodbury"], CONSISTENT_WAVE_MAX_REL, None),
+        ("mesh_file_eig_woodbury", ["--mesh-file", "MESH", "--nx", "32", "--nt", "32", "--dtype", "float32",
+                                    "--method", "woodbury"], EIG_MAX_REL, None),
+    ]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as tmp:
+        pts, tris = perturbed_mesh(32, 0.18, 0)
+        np_mesh = os.path.join(tmp, "mesh.npz")
+        import numpy as np
+
+        np.savez(np_mesh, points=pts, triangles=tris)
+        for name, argv, gate, iters in cases:
+            argv = [np_mesh if a == "MESH" else a for a in argv]
+            for nt, ns in grids:
+                cmd = [sys.executable, "-m", "optimal_control_paradiag_torch.run", "--mesh", f"{nt},{ns}",
+                       "--out", os.path.join(tmp, name), *argv]
+                if nt * ns > 1:
+                    cmd[1:1] = ["-m", "torch.distributed.run", "--standalone", f"--nproc-per-node={nt * ns}"]
+                t0 = time.perf_counter()
+                proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=HERE)
+                if proc.returncode != 0:
+                    return f"sharded CLI {name} on {nt}x{ns} exited {proc.returncode}: {proc.stderr[-2000:]}"
+                out = proc.stdout
+                rec = json.loads(out[out.index("{"):out.rindex("}") + 1])
+                rel = rec["relative_residual_f64"]
+                print(json.dumps({"phase": "sharded_cards", "case": name, "grid": [nt, ns], "cards": nt * ns,
+                                  "backend": "nccl", "card": smi, "iterations": rec["iterations"],
+                                  "relative_residual_f64": rel, "gate": gate, "collectives": rec["collectives"],
+                                  "timings_ms": rec["timings_ms"], "run_s": time.perf_counter() - t0}), flush=True)
+                if not rel <= gate:
+                    return f"sharded CLI {name} on {nt}x{ns}: residual {rel:.3e} > {gate}"
+                if iters is not None and rec["iterations"] != iters:
+                    return f"sharded CLI {name} on {nt}x{ns}: {rec['iterations']} iterations, not {iters}"
+                if rec["collectives"].get("all_gather", 0):
+                    return f"sharded CLI {name} on {nt}x{ns} all-gathered"
+    return None
+
+
 def main() -> int:
     import torch
 
@@ -1836,6 +2057,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    if "--cards" in sys.argv[1:]:
+        cards = int(sys.argv[sys.argv.index("--cards") + 1])
+        if torch.cuda.device_count() < cards:
+            return fail(f"--cards {cards}: {torch.cuda.device_count()} card(s) visible")
+        err = cards_phases(torch, smi, cards)
+        if err:
+            return fail(err)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if "--sharded" in sys.argv[1:]:
+        err = sharded_phases(torch, smi, torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda"))
+        if err:
+            return fail(err)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--sdc-wall" in sys.argv[1:]:
         code = sdc_wall(torch, smi)
         if code == 0:
@@ -2262,6 +2500,9 @@ def main() -> int:
     if err:
         return fail(err)
     err = eigbasis_phases(torch, smi, flush)
+    if err:
+        return fail(err)
+    err = sharded_phases(torch, smi, flush)
     if err:
         return fail(err)
 

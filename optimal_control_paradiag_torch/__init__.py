@@ -49,6 +49,13 @@ factorization (``ProblemConfig.dst_method``), the time transforms
 optimal_control_paradiag_torch.run`` (``run.py``; writers in ``io/``, timers,
 monitor and checkpoints in ``utils/``, plots in ``viz/``).
 
+The sharded solves (``parallel/``) run either family over a ('time',
+'space') grid of processes on ``torch.distributed``, one device each:
+``parallel.solve.make_sharded_solver`` and ``make_sharded_heat_solver`` on a
+``parallel.make_layout(n_time, n_space)``, and ``--mesh TIME,SPACE`` in the
+CLI. ``utils/compilation_cache.py`` names the build directory of the
+compiled kernels (``PARADIAG_COMPILE_CACHE``).
+
 Entry points run on the card (``device='cuda'``) unless the caller passes
 ``device='cpu'`` (the CLI: ``--platform cpu``).
 """

@@ -105,8 +105,11 @@ class SolverConfig:
     - ``method='direct'``: dense LU of the assembled all-at-once matrix
       (small problems).
 
-    What the port lacks (the eigenbasis solve of triangle meshes, the
-    sharded layouts) raises ``NotImplementedError`` naming its ROADMAP item.
+    A triangle mesh's ``method='woodbury'`` is the direct solve over its
+    generalized eigenbasis (``paradiag/eigbasis.py``); the sharded solves
+    of both families take the same configuration (``parallel/solve.py``).
+    What the port lacks (``dst_precision='high'``) raises
+    ``NotImplementedError`` naming its ROADMAP item.
     """
 
     method: str = "gmres"

@@ -1,8 +1,10 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` file exposes a plain ``extern "C"`` launcher. It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library, cached under
-``csrc/_build/`` by a hash of the source and the flags, and loaded with
+compiled with ``nvcc`` for ``sm_90a`` into a shared library, cached in
+the build directory (``utils.compilation_cache.build_dir``: ``csrc/_build/``
+unless ``PARADIAG_COMPILE_CACHE`` says otherwise) by a hash of the source
+and the flags, and loaded with
 ``ctypes``. Nothing here runs at import: the first call that launches a
 kernel builds it, so the package imports on machines without ``nvcc``.
 A failed build raises; there is no fallback. :func:`launch_fused_solve`
@@ -24,8 +26,9 @@ from typing import Dict
 
 import torch
 
+from optimal_control_paradiag_torch.utils.compilation_cache import build_dir
+
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_BUILD = os.path.join(_CSRC, "_build")
 NVCC_FLAGS = (
     "-O3",
     "-std=c++17",
@@ -71,13 +74,13 @@ def load_library(source: str) -> BuiltLibrary:
         src = os.path.join(_CSRC, source)
         with open(src, "rb") as fh:
             digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        os.makedirs(_BUILD, exist_ok=True)
+        build = build_dir()
         stem = os.path.splitext(source)[0]
-        path = os.path.join(_BUILD, f"{stem}-{digest}.so")
+        path = os.path.join(build, f"{stem}-{digest}.so")
         log_path = path[:-3] + ".log"
         seconds = 0.0
         if not os.path.exists(path):
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=build)
             os.close(fd)
             t0 = time.perf_counter()
             proc = subprocess.run(

@@ -16,6 +16,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
+
 
 def cocg(
     A: Callable,
@@ -26,6 +28,7 @@ def cocg(
     tol: float = 1e-10,
     maxiter: int = 50,
     batch_dims: int = 0,
+    layout=None,
 ):
     """Solve A x = b for complex-symmetric A, batched outside ``dot_axes``.
 
@@ -34,10 +37,15 @@ def cocg(
     its axes past the first ``batch_dims``: all systems of a lane share the
     trip count, as in the JAX package. The test reads a device tensor, so
     each iteration synchronises the host once; ``iterations`` is the trip
-    count of the slowest lane.
+    count of the slowest lane. Under a ``layout`` (``parallel.sharding``)
+    the systems are split over the grid's ranks along an axis outside
+    ``dot_axes`` (the modes of the 'block' preconditioner), so the products
+    stay local and only the stopping test's maxima are reduced
+    (``all_reduce`` with MAX): every rank takes the same trip count.
     """
     if M is None:
         M = lambda v: v
+    lay = resolve_layout(layout)
     axes = tuple(dot_axes)
 
     def dot_T(a, c):
@@ -49,7 +57,8 @@ def cocg(
     lane_axes = tuple(range(batch_dims, b.ndim))
 
     def lane_max(t):  # max over each lane's axes, kept for broadcasting
-        return torch.amax(t.abs(), dim=lane_axes, keepdim=True)
+        m = torch.amax(t.abs(), dim=lane_axes, keepdim=True)
+        return lay.all_reduce(m, op="max")
 
     bnorm = torch.clamp_min(lane_max(b), 1e-300)
     x = torch.zeros_like(b)

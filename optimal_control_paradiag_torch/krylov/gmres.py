@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
+from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
 from optimal_control_paradiag_torch.utils.constants import np_dtype
 
 # Krylov-basis memory budget (bytes) for the restart clamp, the JAX
@@ -91,22 +92,35 @@ def _givens(a, b):
     return c.real, s, phase_a * rho
 
 
-def arnoldi_step(op: Callable, V: torch.Tensor, k: int, shape) -> torch.Tensor:
+def _norms(w: torch.Tensor, lay) -> torch.Tensor:
+    """Per-lane 2-norms of flat ``(B, m)`` vectors; under a layout, of the
+    global vectors whose blocks the ranks hold (one ``all_reduce``).
+    Unsharded, ``linalg.norm`` keeps the single-process loop bitwise."""
+    if not lay.sharded:
+        return torch.linalg.norm(w, dim=1)
+    sq = torch.sum(torch.square(w.real) + torch.square(w.imag), dim=1) if w.is_complex() else torch.sum(w * w, dim=1)
+    return torch.sqrt(lay.all_reduce(sq))
+
+
+def arnoldi_step(op: Callable, V: torch.Tensor, k: int, shape, layout=None) -> torch.Tensor:
     """The device part of Arnoldi step ``k`` for B lanes: ``w = op(V[:, k])``,
     made orthogonal to ``V[:, :k+1]`` by CGS2 (batched products), and
     ``V[:, k+1] = w / |w|`` (``w`` itself where ``|w| = 0``). ``V`` is the
     flat basis ``(B, restart+1, m)``, ``op`` maps states ``(B, *shape)``.
     Returns the B Hessenberg columns ``[h_0, ..., h_k, |w|]``, ``(B, k+2)``,
-    on the device."""
+    on the device. Under a ``layout`` (``parallel.sharding``) V holds this
+    rank's block of each basis vector, and each projection and the norm is
+    completed by an ``all_reduce`` (three per step)."""
     B = V.shape[0]
     Vk = V[:, : k + 1]
     Vh = Vk.conj() if V.is_complex() else Vk
+    lay = resolve_layout(layout)
     w = op(V[:, k].reshape((B,) + tuple(shape))).reshape(B, -1)
-    h1 = torch.bmm(Vh, w[:, :, None])[:, :, 0]
+    h1 = lay.all_reduce(torch.bmm(Vh, w[:, :, None])[:, :, 0])
     w = w - torch.bmm(h1[:, None, :], Vk)[:, 0]
-    h2 = torch.bmm(Vh, w[:, :, None])[:, :, 0]
+    h2 = lay.all_reduce(torch.bmm(Vh, w[:, :, None])[:, :, 0])
     w = w - torch.bmm(h2[:, None, :], Vk)[:, 0]
-    hk1 = torch.linalg.norm(w, dim=1)
+    hk1 = _norms(w, lay)
     V[:, k + 1] = w / torch.where(hk1 > 0, hk1, torch.ones_like(hk1))[:, None]
     return torch.cat([h1 + h2, hk1.to(V.dtype)[:, None]], dim=1)
 
@@ -143,6 +157,7 @@ def gmres_batched(
     atol: float = 0.0,
     maxiter: int = 1000,
     side: str = "left",
+    layout=None,
 ) -> GmresResult:
     """Solve ``A x = b`` for B systems ``b (B, *shape)`` at once, with
     preconditioner ``M ~= A^{-1}`` and the semantics of the JAX package's
@@ -158,7 +173,15 @@ def gmres_batched(
     The restart is clamped on the per-lane shape, as the JAX package's clamp
     sees it under ``vmap``, so the iteration counts match; the Krylov basis
     ``(B, restart+1, *shape)`` therefore takes B times the budget's
-    memory."""
+    memory.
+
+    ``layout`` (a ``parallel.sharding.ParallelLayout``): the states are this
+    rank's canonical blocks of global states, ``matvec`` and ``M`` map blocks
+    to blocks, and every inner product and norm is reduced over the grid.
+    Every rank then reads the same Hessenberg columns and runs the same host
+    Givens updates and stopping tests, so all ranks take the same branches;
+    the restart clamp sees the global state size. ``None`` (the default)
+    leaves the single-process loop exactly as it is."""
     if side not in ("left", "right"):
         raise ValueError(f"unknown side {side!r}")
     require_full_fp32_matmul()
@@ -168,13 +191,18 @@ def gmres_batched(
     np_t = np_dtype(b.dtype)
     np_r = np.empty((), np_t).real.dtype
     x = torch.zeros_like(b) if x0 is None else x0
-    restart = clamp_restart(restart, shape, b.dtype, maxiter)
+    lay = resolve_layout(layout)
+    clamp_shape = shape
+    if lay.sharded:
+        size = torch.tensor([float(b[0].numel())], dtype=torch.float64, device=b.device)
+        clamp_shape = (int(lay.all_reduce(size).item()),)
+    restart = clamp_restart(restart, clamp_shape, b.dtype, maxiter)
     op = (lambda v: M(matvec(v))) if side == "left" else (lambda v: matvec(M(v)))
 
     def residual(x):
         r = b - matvec(x)
         r = M(r) if side == "left" else r
-        beta_t = torch.linalg.norm(r.reshape(B, -1), dim=1)
+        beta_t = _norms(r.reshape(B, -1), lay)
         return r, beta_t, beta_t.cpu().numpy().astype(np_r)
 
     V = torch.empty((B, restart + 1, b[0].numel()), dtype=b.dtype, device=b.device)
@@ -198,7 +226,7 @@ def gmres_batched(
         active = running & (res > tol)
         k = 0
         while active.any():
-            hcol = arnoldi_step(op, V, k, shape).cpu().numpy()  # the step's one sync
+            hcol = arnoldi_step(op, V, k, shape, lay).cpu().numpy()  # the step's one sync
             for i in np.flatnonzero(active):
                 res[i] = givens_update(hcol[i], k, R[i], cs[i], sn[i], g[i])
                 hist[i, it[i] + k + 1] = res[i]

@@ -19,6 +19,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
+
 
 class MinresResult(NamedTuple):
     """Solution and convergence record; with a batch, every field has the
@@ -40,17 +42,24 @@ def minres(
     rtol: float = 1e-5,
     maxiter: int = 1000,
     batch_dims: int = 0,
+    layout=None,
 ) -> MinresResult:
     """Solve symmetric ``A x = b``; ``M`` must be symmetric positive definite
     (preconditioned residual norms are measured in the M-inner product).
-    ``matvec`` and ``M`` act on states of ``b``'s shape, batch included."""
+    ``matvec`` and ``M`` act on states of ``b``'s shape, batch included.
+    Under a ``layout`` (``parallel.sharding``) the states are this rank's
+    canonical blocks and each inner product is completed by an
+    ``all_reduce`` (two per iteration); every rank then holds the same
+    scalars and stops at the same step."""
     if M is None:
         M = lambda v: v
+    lay = resolve_layout(layout)
     lanes = b.shape[:batch_dims]
     axes = tuple(range(batch_dims, b.ndim))
 
     def dot(a, c):
-        return torch.sum(a * c, dim=axes)
+        d = torch.sum(a * c, dim=axes)
+        return lay.all_reduce(d)
 
     def bc(s):  # a per-lane scalar against a state
         return s.reshape(lanes + (1,) * len(axes))

@@ -59,11 +59,8 @@ from optimal_control_paradiag_torch.paradiag.spectral import (
     make_halfspectrum_transforms,
     pairing_weights,
 )
+from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
 from optimal_control_paradiag_torch.utils.constants import complex_dtype, host_f64, resolve_device, to_device
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"heat model: {what} is not ported yet: ROADMAP Queue A {item}")
-
 
 class HeatSolution(NamedTuple):
     u: torch.Tensor  # (N_t, n), u_sol[i] ~ u(t_{i+1}), physical (unscaled)
@@ -162,18 +159,27 @@ class HeatControlProblem:
         row_p = sp.apply_mass(p - tshift(p, -1)) + tau * stiffness(p) + th * sp.apply_mass(u)
         return join_state(row_u, row_p)
 
-    def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """A @ x on scaled states ``(..., 2, N_t, n)`` (module docstring)."""
-        return self._rows(x, self.space.apply_stiffness)
+    def _apply(self, x: torch.Tensor, stiffness, layout) -> torch.Tensor:
+        if resolve_layout(layout).sharded:
+            # backward Euler reaches one slice back (u) and forward (p)
+            fn = lambda ext, g0: self._rows(ext, stiffness)
+            return layout.apply_stencil(x, fn, self.config.N_t, self.space, t_halo=1)
+        return self._rows(x, stiffness)
 
-    def matvec_accurate(self, x: torch.Tensor) -> torch.Tensor:
+    def matvec(self, x: torch.Tensor, layout=None) -> torch.Tensor:
+        """A @ x on scaled states ``(..., 2, N_t, n)`` (module docstring);
+        under a ``layout`` (``parallel.sharding.ParallelLayout``) x is this
+        rank's canonical block and so is the result."""
+        return self._apply(x, self.space.apply_stiffness, layout)
+
+    def matvec_accurate(self, x: torch.Tensor, layout=None) -> torch.Tensor:
         """A @ x in cancellation-aware form. The backward-Euler difference
         ``u_i - u_{i-1}`` already is the nested first difference; the one
         remaining float32 cancellation, the stiffness on smooth states, goes
         through :meth:`P1Space.apply_stiffness_nested`. The polish ladder
         (``paradiag.spectral.build_polished_solver``) measures defects with
-        it."""
-        return self._rows(x, self.space.apply_stiffness_nested)
+        it. ``layout`` as for :meth:`matvec`."""
+        return self._apply(x, self.space.apply_stiffness_nested, layout)
 
     @functools.cached_property
     def rhs(self) -> torch.Tensor:
@@ -255,20 +261,27 @@ class HeatControlProblem:
         ``time_transform``: 'fft2' (packed FFT, default), 'fft', 'dft' or
         'mxu' (``paradiag.spectral.make_halfspectrum_transforms``). With
         ``mass_surrogate`` it is the exact solve of the TENSOR-mass surrogate
-        operator (the 2D consistent mass's preconditioner)."""
+        operator (the 2D consistent mass's preconditioner).
+
+        ``layout`` (a ``parallel.sharding.ParallelLayout``): the sharded solve,
+        b and x canonical blocks, through the wave family's half-spectrum
+        stage moves (``time_transform`` then defaults to 'dft'); the
+        elementwise work runs on this rank's bins, and each pair of phase
+        sums ends in one ``all_reduce``."""
         require_full_fp32_matmul()
-        if layout is not None:
-            _not_ported("the sharded Woodbury solve", "item 14")
-        time_transform = "fft2" if time_transform is None else time_transform
+        lay = resolve_layout(layout)
+        if time_transform is None:
+            time_transform = "dft" if lay.sharded else "fft2"
         cfg = self.config
         N_t = cfg.N_t
         K = N_t // 2 + 1
         rdtype, dev = cfg.dtype, self.device
         np_c = np.dtype(np.complex64 if rdtype == torch.float32 else np.complex128)
         L1, muM64, muK64, _, _, _ = self._plan(mass_surrogate=mass_surrogate)
+        rows = lay.rows("mode_local", K)
 
-        k = np.arange(K)
-        wgt = pairing_weights(N_t)
+        k = np.arange(K)[rows]
+        wgt = pairing_weights(N_t)[rows]
         # Extraction phases carry the pairing weight; injections use plain bins.
         phiw = lambda i: to_device(wgt * np.exp(-2j * np.pi * i * k / N_t), np_c, dev)
         psi = lambda i: to_device(np.exp(2j * np.pi * i * k / N_t) / N_t, np_c, dev)
@@ -278,7 +291,7 @@ class HeatControlProblem:
         G = [[to_device(G_h[:, a, b], rdtype, dev) for b in range(2)] for a in range(2)]
 
         m1 = to_device(muM64, rdtype, dev)
-        a11 = to_device(L1[:K], np_c, dev)[:, None] * m1[None, :] + self.tau * to_device(
+        a11 = to_device(L1[:K][rows], np_c, dev)[:, None] * m1[None, :] + self.tau * to_device(
             muK64, rdtype, dev
         )[None, :]
         a22 = a11.conj()
@@ -293,10 +306,11 @@ class HeatControlProblem:
 
         def extract(y):
             yu, yp = split_state(y)
-            return (
+            z = (
                 torch.sum(phi_uN[:, None] * yu, dim=-2).real,
                 torch.sum(phi_p1[:, None] * yp, dim=-2).real,
             )
+            return tuple(lay.all_reduce(torch.stack(z)).unbind(0)) if lay.sharded else z
 
         def A_hat(xi):
             xu, xp = split_state(xi)
@@ -314,7 +328,7 @@ class HeatControlProblem:
             return y - D_inv(join_state(psi_u1[:, None] * col(w[0]), psi_pN[:, None] * col(w[1])))
 
         to_spectral, from_spectral = make_halfspectrum_transforms(
-            self.space, N_t, rdtype, time_transform=time_transform
+            self.space, N_t, rdtype, layout=layout, time_transform=time_transform
         )
 
         def solve(b):
@@ -383,21 +397,23 @@ class HeatControlProblem:
         sqrt(det)``, so the SPD preconditioner is the scalar ``T^{-1}
         det^{-1/2} T`` on the half spectrum (``time_transform``: the packed
         FFT 'fft2' by default). The 2D consistent mass uses the tensor-part
-        surrogate spectrum in the preconditioner only."""
-        if layout is not None:
-            _not_ported("the sharded symmetric system", "item 14")
+        surrogate spectrum in the preconditioner only. ``layout`` (a
+        ``parallel.sharding.ParallelLayout``): all three act on this rank's
+        canonical blocks, the scalar cut to its bins; ``time_transform``
+        then defaults to 'dft', as in the JAX package."""
         require_full_fp32_matmul()
+        lay = resolve_layout(layout)
+        if time_transform is None:
+            time_transform = "dft" if lay.sharded else "fft2"
         sp = self.space
         N_t = self.config.N_t
         K = N_t // 2 + 1
         _, _, _, _, _, det_h = self._plan(mass_surrogate=not sp.diagonalizable)
-        inv_sqrt_det = to_device(1.0 / np.sqrt(det_h[:K]), self.config.dtype, self.device)
-        to_s, from_s = make_halfspectrum_transforms(
-            sp, N_t, self.config.dtype, time_transform="fft2" if time_transform is None else time_transform
-        )
+        inv_sqrt_det = to_device(1.0 / np.sqrt(det_h[:K][lay.rows("mode_local", K)]), self.config.dtype, self.device)
+        to_s, from_s = make_halfspectrum_transforms(sp, N_t, self.config.dtype, layout=layout, time_transform=time_transform)
 
         def matvec_sym(x):
-            return _swap(self.matvec(x))
+            return _swap(self.matvec(x, layout=layout))
 
         def pc_spd(r):
             return from_s(to_s(r) * inv_sqrt_det)

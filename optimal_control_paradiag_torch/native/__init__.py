@@ -6,7 +6,9 @@ meshes and 1D intervals), reverse Cuthill-McKee ordering, block-row
 partitioning, and the structured unit-square triangulation (pure numpy).
 
 The library is built from the repository's one C++ source with ``g++`` on
-first use, into the port's build directory (``csrc/_build/``), under a name
+first use, into the port's build directory
+(``utils.compilation_cache.build_dir``: ``csrc/_build/`` unless
+``PARADIAG_COMPILE_CACHE`` says otherwise), under a name
 that carries a hash of the source and the flags. The compiler writes a
 temporary file that is then renamed into place, so processes that build at
 once never load a half-written library. Nothing is built at import.
@@ -24,9 +26,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from optimal_control_paradiag_torch.utils.compilation_cache import build_dir
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(os.path.dirname(_PKG), "native", "paradiag_host.cpp")
-_BUILD = os.path.join(_PKG, "csrc", "_build")
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lib: Optional[ctypes.CDLL] = None
@@ -43,11 +46,11 @@ def _build() -> str:
             digest = hashlib.sha256(fh.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
     except OSError as exc:
         raise NativeUnavailable(f"cannot read {_SRC}: {exc}") from exc
-    path = os.path.join(_BUILD, f"libparadiag_host-{digest}.so")
+    build = build_dir()
+    path = os.path.join(build, f"libparadiag_host-{digest}.so")
     if os.path.exists(path):
         return path
-    os.makedirs(_BUILD, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build)
     os.close(fd)
     try:
         subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp], check=True, capture_output=True, text=True, timeout=300)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from optimal_control_paradiag_torch.fem.space import P1Space, _np_shift, shift
+from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
 
 
 def tshift(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -88,14 +89,20 @@ class AllAtOnceOperator:
             self._half_cache[key] = (cu, cp)
         return self._half_cache[key]
 
-    def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """A @ x for x of shape ``(..., 2, N_t, n)``."""
+    def _half_rows_at(self, g0: int, rows: int, like: torch.Tensor):
+        """The (cu, cp) columns of rows ``g0 .. g0+rows-1`` of the global
+        time axis (rows outside ``0 .. N_t-1`` get weight 1: they are halo
+        rows past the ends, whose results are dropped)."""
+        g = torch.arange(g0, g0 + rows, device=like.device)[:, None]
+        one = torch.ones((rows, 1), dtype=like.dtype, device=like.device)
+        return torch.where(g == 0, 0.5 * one, one), torch.where(g == self.N_t - 1, 0.5 * one, one)
+
+    def _rows(self, x: torch.Tensor, cu: torch.Tensor, cp: torch.Tensor) -> torch.Tensor:
         sp = self.space
         u, p = split_state(x)
         half_d2 = 0.5 * self.dt * self.dt
         mu, mp = sp.apply_mass(u), sp.apply_mass(p)
         ku, kp = sp.apply_stiffness(u), sp.apply_stiffness(p)
-        cu, cp = self._half_rows(x)
 
         au = (mu - 2.0 * tshift(mu, 1) + tshift(mu, 2)) + half_d2 * (ku + tshift(ku, 2))
         au = au - self.c_up * cu * mp
@@ -105,7 +112,37 @@ class AllAtOnceOperator:
 
         return join_state(au, ap)
 
-    def matvec_accurate(self, x: torch.Tensor) -> torch.Tensor:
+    def _rows_accurate(self, x: torch.Tensor, cu: torch.Tensor, cp: torch.Tensor) -> torch.Tensor:
+        sp = self.space
+        u, p = split_state(x)
+        half_d2 = 0.5 * self.dt * self.dt
+        du1 = u - tshift(u, 1)
+        d2u = du1 - tshift(du1, 1)
+        dp1 = p - tshift(p, -1)
+        d2p = dp1 - tshift(dp1, -1)
+        ku, kp = sp.apply_stiffness_nested(u), sp.apply_stiffness_nested(p)
+        au = sp.apply_mass(d2u) + half_d2 * (ku + tshift(ku, 2))
+        au = au - self.c_up * cu * sp.apply_mass(p)
+        ap = sp.apply_mass(d2p) + half_d2 * (kp + tshift(kp, -2))
+        ap = ap + self.c_pu * cp * sp.apply_mass(u)
+        return join_state(au, ap)
+
+    def _sharded(self, x: torch.Tensor, rows, layout) -> torch.Tensor:
+        """``rows`` on this rank's canonical block of a sharded state: the
+        time stencil reaches two slices back and forward
+        (``ParallelLayout.apply_stencil``)."""
+        fn = lambda ext, g0: rows(ext, *self._half_rows_at(g0, ext.shape[-2], ext))
+        return layout.apply_stencil(x, fn, self.N_t, self.space, t_halo=2)
+
+    def matvec(self, x: torch.Tensor, layout=None) -> torch.Tensor:
+        """A @ x for x of shape ``(..., 2, N_t, n)``; under a ``layout``
+        (``parallel.sharding.ParallelLayout``) x is this rank's canonical
+        block and so is the result."""
+        if resolve_layout(layout).sharded:
+            return self._sharded(x, self._rows, layout)
+        return self._rows(x, *self._half_rows(x))
+
+    def matvec_accurate(self, x: torch.Tensor, layout=None) -> torch.Tensor:
         """A @ x in cancellation-aware form: algebraically :meth:`matvec`,
         numerically far more accurate in float32 on smooth states. Two
         rewrites, in this order:
@@ -121,21 +158,11 @@ class AllAtOnceOperator:
 
         The physical-space defect correction
         (``paradiag.spectral.build_polished_solver``) measures ``b - A x``
-        with it, below the float32 representation floor of x."""
-        sp = self.space
-        u, p = split_state(x)
-        half_d2 = 0.5 * self.dt * self.dt
-        du1 = u - tshift(u, 1)
-        d2u = du1 - tshift(du1, 1)
-        dp1 = p - tshift(p, -1)
-        d2p = dp1 - tshift(dp1, -1)
-        ku, kp = sp.apply_stiffness_nested(u), sp.apply_stiffness_nested(p)
-        cu, cp = self._half_rows(x)
-        au = sp.apply_mass(d2u) + half_d2 * (ku + tshift(ku, 2))
-        au = au - self.c_up * cu * sp.apply_mass(p)
-        ap = sp.apply_mass(d2p) + half_d2 * (kp + tshift(kp, -2))
-        ap = ap + self.c_pu * cp * sp.apply_mass(u)
-        return join_state(au, ap)
+        with it, below the float32 representation floor of x. ``layout`` as
+        for :meth:`matvec`."""
+        if resolve_layout(layout).sharded:
+            return self._sharded(x, self._rows_accurate, layout)
+        return self._rows_accurate(x, *self._half_rows(x))
 
     def matvec_flat(self, x: torch.Tensor) -> torch.Tensor:
         """A @ x for flat x of length ``2 * N_t * n`` (batched: ``(..., size)``)."""

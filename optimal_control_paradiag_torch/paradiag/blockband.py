@@ -82,12 +82,13 @@ def _level_blocks(csr, inv: np.ndarray, m: int, L: int, pad_diag: float):
     return D, S, U
 
 
-def build_blockband_solver(op) -> Callable[[torch.Tensor], torch.Tensor]:
+def build_blockband_solver(op, modes=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """Factorize P_k for modes 0..N_t//2 on the RCM-banded level structure
     and return the half-spectrum solver ``solve(rhat) -> w`` on ``(..., 2,
     N_t, n)`` mode arrays (full spectrum in and out, leading axes a batch;
     ``rhat`` must carry real-residual mode symmetry, as for
-    :func:`paradiag.blockline.build_blockline_solver`)."""
+    :func:`paradiag.blockline.build_blockline_solver`, whose ``modes``
+    argument this one shares)."""
     sp = op.space
     if sp.diagonalizable:
         raise ValueError("blockband is the unstructured direct path; "
@@ -97,12 +98,13 @@ def build_blockband_solver(op) -> Callable[[torch.Tensor], torch.Tensor]:
     cdtype = complex_dtype(rdtype)
     n = sp.n
     N_t = op.N_t
-    hk = N_t // 2 + 1
+    lo, hi = (0, N_t // 2 + 1) if modes is None else modes
+    hk = hi - lo
     c = 0.5 * op.dt * op.dt
     theta = op.dt * op.dt / (op.gamma**0.5)
     e = circulant_eigs(N_t, op.dt, op.gamma)
-    L1 = np.asarray(e.Lambda1, np.complex128)[:hk]
-    L2 = np.asarray(e.Lambda2, np.complex128)[:hk]
+    L1 = np.asarray(e.Lambda1, np.complex128)[lo:hi]
+    L2 = np.asarray(e.Lambda2, np.complex128)[lo:hi]
 
     perm, m = band_profile(sp)
     L = -(-n // m)
@@ -144,7 +146,7 @@ def build_blockband_solver(op) -> Callable[[torch.Tensor], torch.Tensor]:
 
     def solve(rhat: torch.Tensor) -> torch.Tensor:
         lead = rhat.shape[:-3]
-        rh = lanes_first(rhat[..., :hk, :], lead).to(cdtype)  # (nb, 2, hk, n)
+        rh = lanes_first(rhat[..., :hk, :] if modes is None else rhat, lead).to(cdtype)  # (nb, 2, hk, n)
         nb = rh.shape[0]
         # RCM order + pad, then level vectors (L, hk, 2m, nb)
         rperm = rh.index_select(-1, perm_d)
@@ -162,6 +164,7 @@ def build_blockband_solver(op) -> Callable[[torch.Tensor], torch.Tensor]:
             xs[j] = x = torch.baddbmm(ys[j], G[j], off, alpha=-1)
         w = xs.reshape(L, hk, 2, m, nb).permute(4, 2, 1, 0, 3).reshape(nb, 2, hk, n_pad)[..., :n]
         w = w.index_select(-1, inv_d)  # undo the RCM permutation
-        return hermitian_mirror(w.reshape(lead + (2, hk, n)), N_t)
+        w = w.reshape(lead + (2, hk, n))
+        return hermitian_mirror(w, N_t) if modes is None else w
 
     return solve

@@ -80,12 +80,14 @@ def hermitian_mirror(w_half: torch.Tensor, N_t: int) -> torch.Tensor:
     return torch.cat([w_half, mirror], dim=-2)
 
 
-def build_blockline_solver(op) -> Callable[[torch.Tensor], torch.Tensor]:
+def build_blockline_solver(op, modes=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """Factorize P_k for modes 0..N_t//2 and return the half-spectrum
     solver ``solve(rhat) -> w`` on ``(..., 2, N_t, n)`` mode arrays (full
     spectrum in and out, leading axes a batch; the Hermitian mirror happens
     inside). ``rhat`` must carry Hermitian mode symmetry, as the time
-    spectrum of any real residual does."""
+    spectrum of any real residual does. ``modes=(lo, hi)`` factors modes
+    ``lo..hi-1`` of the full spectrum instead, and the solver maps those
+    modes, no mirror (a sharded rank's block of the modes)."""
     sp = op.space
     if sp.dim != 2 or not hasattr(sp, "n1d"):
         raise ValueError("blockline is the 2D structured-grid direct solver; "
@@ -95,12 +97,13 @@ def build_blockline_solver(op) -> Callable[[torch.Tensor], torch.Tensor]:
     cdtype, dev = complex_dtype(sp.dtype), sp.device
     m = sp.n1d
     N_t = op.N_t
-    hk = N_t // 2 + 1
+    lo, hi = (0, N_t // 2 + 1) if modes is None else modes
+    hk = hi - lo
     c = 0.5 * op.dt * op.dt
     theta = op.dt * op.dt / (op.gamma**0.5)
     e = circulant_eigs(N_t, op.dt, op.gamma)
-    L1 = np.asarray(e.Lambda1, np.complex128)[:hk]
-    L2 = np.asarray(e.Lambda2, np.complex128)[:hk]
+    L1 = np.asarray(e.Lambda1, np.complex128)[lo:hi]
+    L2 = np.asarray(e.Lambda2, np.complex128)[lo:hi]
 
     hh12 = sp.h * sp.h / 12.0
     eye = np.eye(m)
@@ -124,7 +127,7 @@ def build_blockline_solver(op) -> Callable[[torch.Tensor], torch.Tensor]:
 
     def solve(rhat: torch.Tensor) -> torch.Tensor:
         lead = rhat.shape[:-3]
-        rh = lanes_first(rhat[..., :hk, :], lead).to(cdtype)  # (nb, 2, hk, n)
+        rh = lanes_first(rhat[..., :hk, :] if modes is None else rhat, lead).to(cdtype)  # (nb, 2, hk, n)
         nb = rh.shape[0]
         # line vectors (lines, hk, 2m, nb): [u within the line | p within]
         r = rh.reshape(nb, 2, hk, m, m).permute(3, 2, 1, 4, 0).reshape(m, hk, 2 * m, nb)
@@ -136,6 +139,6 @@ def build_blockline_solver(op) -> Callable[[torch.Tensor], torch.Tensor]:
         for j in range(m - 2, -1, -1):
             xs[j] = x = torch.baddbmm(ys[j], G[j], torch.bmm(Cd, x), alpha=-1)
         w = xs.reshape(m, hk, 2, m, nb).permute(4, 2, 1, 0, 3).reshape(lead + (2, hk, m * m))
-        return hermitian_mirror(w, N_t)
+        return hermitian_mirror(w, N_t) if modes is None else w
 
     return solve

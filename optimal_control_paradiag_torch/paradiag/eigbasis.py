@@ -188,7 +188,11 @@ class EigBasisSpace:
 
     def _mm(self, x: torch.Tensor, transpose: bool) -> torch.Tensor:
         """``V^T x`` (``transpose``) or ``V x`` over the last axis: one GEMM,
-        a complex input as its two real planes stacked into one GEMM."""
+        a complex input as its two real planes stacked into one GEMM. The
+        sharded Woodbury solve calls it on ``mode_local`` blocks (every
+        spatial unknown local, the time rows or bins split over the ranks),
+        so each rank multiplies its rows by the whole V and nothing is
+        gathered."""
         Vm = self.V if transpose else self.V.mT
         if x.is_complex():
             y = torch.stack([x.real, x.imag]) @ Vm

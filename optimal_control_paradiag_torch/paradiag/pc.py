@@ -36,8 +36,10 @@ unstructured meshes) solve the coupled per-mode system P_k w = r directly:
   (``paradiag/blockband.py``, unstructured meshes).
 
 The time transform is ``torch.fft`` or, with ``time_transform='dft'``, the
-real-matmul DFT of ``ops/transforms.py``. The sharded ``layout`` is not
-ported yet and raises ``NotImplementedError`` naming its ROADMAP item.
+real-matmul DFT of ``ops/transforms.py``. Under a ``layout``
+(``parallel.sharding.ParallelLayout``) every variant runs on the ranks'
+blocks: the time transform time-local, the spatial transform and the
+per-mode solves mode-local, each per-mode constant cut to the rank's modes.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from optimal_control_paradiag_torch.paradiag.blockband import build_blockband_so
 from optimal_control_paradiag_torch.paradiag.blockline import build_blockline_solver
 from optimal_control_paradiag_torch.paradiag.eigs import circulant_eigs
 from optimal_control_paradiag_torch.paradiag.inner import make_dst_inner_solver
+from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
 from optimal_control_paradiag_torch.utils.constants import complex_dtype, host_f64, to_device
 
 _VARIANTS = ("fulldiag", "eig", "block", "blockdense", "blockline", "blockband")
@@ -79,12 +82,17 @@ def build_preconditioner(
     (``torch.fft``, the default) or 'dft' (real-matmul DFT from
     :mod:`ops.transforms`). ``inner_tol`` and ``inner_maxiter`` bound the
     'block' variant's COCG.
+
+    ``layout`` (a ``parallel.sharding.ParallelLayout``): ``apply`` maps this
+    rank's canonical block of r to its block of y. The FFT stage runs
+    time-local and the DST and per-mode solves mode-local, two stage moves
+    (``all_to_all_single``) each way; ``time_transform`` then defaults to
+    'dft', as in the JAX package. An ``inner_solver`` then receives this
+    rank's modes: shifts ``(m, 1)`` and right-hand sides ``(m, n)``.
     """
-    if layout is not None:
-        raise NotImplementedError(
-            "the sharded preconditioner (layout) is not ported yet: ROADMAP Queue A item 14"
-        )
-    time_transform = "fft" if time_transform is None else time_transform
+    lay = resolve_layout(layout)
+    if time_transform is None:
+        time_transform = "dft" if lay.sharded else "fft"
     if time_transform not in ("fft", "dft"):
         raise ValueError(f"unknown time_transform {time_transform!r}")
     if not op.scaled:
@@ -100,6 +108,8 @@ def build_preconditioner(
     cdtype = complex_dtype(rdtype)
     e = circulant_eigs(op.N_t, op.dt, op.gamma)
     c = 0.5 * op.dt * op.dt
+    N_t, n = op.N_t, sp.n
+    rows = lay.rows("mode_local", N_t)  # this rank's modes (all of them unsharded)
 
     if time_transform == "dft":
         Cm, Sm = transforms.dft_matrices(op.N_t, rdtype, dev)
@@ -118,6 +128,14 @@ def build_preconditioner(
         def fft_t_real(y):
             return torch.fft.fft(y, dim=-2).real
 
+    def to_modes(r):  # canonical real block -> mode_local spectrum
+        rhat = ifft_t(lay.move(r, "canonical", "time_local", N_t, n))
+        return lay.move(rhat, "time_local", "mode_local", N_t, n)
+
+    def from_modes(y):  # mode_local spectrum -> canonical real block
+        y = fft_t_real(lay.move(y, "mode_local", "time_local", N_t, n))
+        return lay.move(y, "time_local", "canonical", N_t, n)
+
     if variant == "fulldiag":
         muM, muK = sp.spectrum
         if muM is None:
@@ -128,7 +146,7 @@ def build_preconditioner(
             )
         # Host float64 constants, cast once and copied to the device once.
         muM_h = np.asarray(muM, np.float64)[None, :]
-        a11_h = e.Lambda1[:, None] * muM_h + c * e.Lambda2[:, None] * np.asarray(muK, np.float64)[None, :]
+        a11_h = e.Lambda1[rows, None] * muM_h + c * e.Lambda2[rows, None] * np.asarray(muK, np.float64)[None, :]
         coup_h = (op.dt * op.dt / (op.gamma**0.5)) * muM_h  # (1, n) real
         det_h = np.abs(a11_h) ** 2 + coup_h * coup_h
         a11 = to_device(a11_h, cdtype, dev)
@@ -137,27 +155,28 @@ def build_preconditioner(
         det = to_device(det_h, rdtype, dev)
 
         def apply_fulldiag(r: torch.Tensor) -> torch.Tensor:
-            ru, rp = split_state(sp.dst(ifft_t(r)))
+            ru, rp = split_state(sp.dst(to_modes(r)))
             yu = (a22 * ru + coup * rp) / det  # -a12 = +coup
             yp = (a11 * rp - coup * ru) / det  # a21 = +coup
-            return fft_t_real(sp.idst(join_state(yu, yp)))
+            return from_modes(sp.idst(join_state(yu, yp)))
 
         return apply_fulldiag
 
     if variant == "block":
-        return _block(op, sp, e, c, ifft_t, fft_t_real, inner_tol, inner_maxiter)
+        return _block(op, sp, e, c, to_modes, from_modes, inner_tol, inner_maxiter, lay, rows)
     if variant == "blockdense":
-        return _blockdense(op, sp, e, c, ifft_t, fft_t_real)
+        return _blockdense(op, sp, e, c, to_modes, from_modes, rows)
     if variant in ("blockline", "blockband"):
         build = build_blockline_solver if variant == "blockline" else build_blockband_solver
-        inner_solve = build(op)
+        # sharded: this rank's modes, each factored (no Hermitian mirror)
+        inner_solve = build(op, modes=(rows.start, rows.stop) if lay.sharded else None)
 
         def apply_banded(r: torch.Tensor) -> torch.Tensor:
-            return fft_t_real(inner_solve(ifft_t(r)))
+            return from_modes(inner_solve(to_modes(r)))
 
         return apply_banded
 
-    col = lambda v: to_device(np.asarray(v)[:, None], cdtype, dev)
+    col = lambda v: to_device(np.asarray(v)[rows, None], cdtype, dev)
     S1, S2, Sig1, Sig2 = col(e.S1), col(e.S2), col(e.Sigma1), col(e.Sigma2)
     L2, L2c = col(e.Lambda2), col(np.conj(e.Lambda2))
 
@@ -170,7 +189,7 @@ def build_preconditioner(
         inner_solver = make_dst_inner_solver(sp, op.dt)
 
     def apply_eig(r: torch.Tensor) -> torch.Tensor:
-        ru, rp = split_state(ifft_t(r))
+        ru, rp = split_state(to_modes(r))
         # S^{-1} mix (det S = 2)
         wu = 0.5 * (ru - S2 * rp)
         wp = 0.5 * (rp - S1 * ru)
@@ -180,12 +199,12 @@ def build_preconditioner(
         # S mix, then the deferred Lambda_2 row scaling
         yu = (wu + S2 * wp) / L2
         yp = (S1 * wu + wp) / L2c
-        return fft_t_real(join_state(yu, yp))
+        return from_modes(join_state(yu, yp))
 
     return apply_eig
 
 
-def _block(op, sp, e, c, ifft_t, fft_t_real, inner_tol, inner_maxiter):
+def _block(op, sp, e, c, to_modes, from_modes, inner_tol, inner_maxiter, lay, rows):
     """The 'block' variant: the coupled per-mode system solved by batched
     COCG. Negating the p-row makes it complex SYMMETRIC,
 
@@ -194,7 +213,8 @@ def _block(op, sp, e, c, ifft_t, fft_t_real, inner_tol, inner_maxiter):
     with no S-eig decoupling, hence no division by Lambda_2 (stable for any
     N_t). The preconditioner is the 2x2 Cramer inverse with the tensor-part
     mass spectrum (``P1Space.spectrum_tensor``, the optimal sine-diagonal
-    surrogate of M). Each lane of a batch keeps its own COCG stopping test."""
+    surrogate of M). Each lane of a batch keeps its own COCG stopping test;
+    sharded, the test's maxima are reduced over the ranks' modes."""
     theta = op.dt * op.dt / (op.gamma**0.5)
     _, muK = sp.spectrum
     if muK is None:
@@ -207,8 +227,8 @@ def _block(op, sp, e, c, ifft_t, fft_t_real, inner_tol, inner_maxiter):
     cdtype = complex_dtype(rdtype)
     muK_h = np.asarray(muK, np.float64)[None, :]
     muMt_h = np.asarray(sp.spectrum_tensor, np.float64)[None, :]
-    L1h = np.asarray(e.Lambda1)[:, None]
-    L2h = np.asarray(e.Lambda2)[:, None]
+    L1h = np.asarray(e.Lambda1)[rows, None]
+    L2h = np.asarray(e.Lambda2)[rows, None]
     b11_h = L1h * muMt_h + c * L2h * muK_h
     pdet_h = -(np.abs(b11_h) ** 2) - (theta * muMt_h) ** 2  # real, < 0
     L1, L2 = to_device(L1h, cdtype, dev), to_device(L2h, cdtype, dev)
@@ -228,21 +248,23 @@ def _block(op, sp, e, c, ifft_t, fft_t_real, inner_tol, inner_maxiter):
         return sp.idst(join_state((-b11c * ru + bcoup * rp) / pdet, (bcoup * ru + b11 * rp) / pdet))
 
     def apply_block(r: torch.Tensor) -> torch.Tensor:
-        ru, rp = split_state(ifft_t(r))
+        ru, rp = split_state(to_modes(r))
         w, _ = cocg(block_A, join_state(ru, -rp), M=block_pinv, dot_axes=(-3, -1),
-                    tol=inner_tol, maxiter=inner_maxiter, batch_dims=r.ndim - 3)
-        return fft_t_real(w)
+                    tol=inner_tol, maxiter=inner_maxiter, batch_dims=r.ndim - 3,
+                    layout=lay)
+        return from_modes(w)
 
     return apply_block
 
 
-def _blockdense(op, sp, e, c, ifft_t, fft_t_real):
+def _blockdense(op, sp, e, c, to_modes, from_modes, rows):
     """The 'blockdense' variant: per-mode dense inverses of the coupled
     2x2-block systems P_k, made once on the host (numpy, complex128; the
     analogue of the reference's cached MUMPS factorization) and applied as
     one mode-batched complex product. Exact for every mode, the
     indefinite-Helmholtz ones and the Lambda_2 ~ 0 ones (N_t % 4 == 0)
-    included. Memory: N_t (2n)^2 complex entries, refused past 3e8."""
+    included. Memory: N_t (2n)^2 complex entries, refused past 3e8 (a
+    sharded rank stores only its modes' inverses)."""
     n = sp.n
     entries = op.N_t * (2 * n) ** 2
     if entries > 3e8:
@@ -253,21 +275,23 @@ def _blockdense(op, sp, e, c, ifft_t, fft_t_real):
     theta = op.dt * op.dt / (op.gamma**0.5)
     M_h = host_f64(sp.mass_dense())
     K_h = host_f64(sp.stiffness_dense())
-    W = np.empty((op.N_t, 2 * n, 2 * n), np.complex128)
-    for k in range(op.N_t):
+    modes = range(op.N_t)[rows]
+    W = np.empty((len(modes), 2 * n, 2 * n), np.complex128)
+    for i, k in enumerate(modes):
         A = np.zeros((2 * n, 2 * n), np.complex128)
         A[:n, :n] = e.Lambda1[k] * M_h + c * e.Lambda2[k] * K_h
         A[:n, n:] = -theta * M_h
         A[n:, :n] = theta * M_h
         A[n:, n:] = np.conj(e.Lambda1[k]) * M_h + c * np.conj(e.Lambda2[k]) * K_h
-        W[k] = np.linalg.inv(A)
+        W[i] = np.linalg.inv(A)
     Wd = to_device(W, complex_dtype(sp.dtype), sp.device)
+    nk = len(modes)
 
     def apply_blockdense(r: torch.Tensor) -> torch.Tensor:
-        ru, rp = split_state(ifft_t(r))
+        ru, rp = split_state(to_modes(r))
         lead = r.shape[:-3]
-        rvec = torch.cat([ru, rp], dim=-1).reshape((-1, op.N_t, 2 * n))  # (nb, N_t, 2n)
-        w = torch.bmm(Wd, rvec.permute(1, 2, 0)).permute(2, 0, 1).reshape(lead + (op.N_t, 2 * n))
-        return fft_t_real(join_state(w[..., :n], w[..., n:]))
+        rvec = torch.cat([ru, rp], dim=-1).reshape((-1, nk, 2 * n))  # (nb, modes, 2n)
+        w = torch.bmm(Wd, rvec.permute(1, 2, 0)).permute(2, 0, 1).reshape(lead + (nk, 2 * n))
+        return from_modes(join_state(w[..., :n], w[..., n:]))
 
     return apply_blockdense

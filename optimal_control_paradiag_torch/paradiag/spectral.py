@@ -51,6 +51,7 @@ from optimal_control_paradiag_torch.ops.transforms import (
     time_rfft_conj_packed,
 )
 from optimal_control_paradiag_torch.paradiag.eigs import circulant_eigs
+from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
 from optimal_control_paradiag_torch.utils.constants import host_const, to_device
 
 
@@ -80,16 +81,18 @@ class _SpectralPlan:
     tm1: torch.Tensor  # theta * muM, (n,)
     mk1: torch.Tensor  # muM + c muK, (n,)
 
-    def mode_diag(self, K: Optional[int] = None):
+    def mode_diag(self, K: Optional[int] = None, rows: slice = slice(None)):
         """Per-mode diagonal ``(a11, a22, tm, inv_det)`` of the circulant
         block system on the plan's device, each broadcastable to
         ``(K or N_t, n)``, formed in working precision from the 1D factors:
 
             a11 = Lambda1 (x) muM + Lambda2 (x) (c muK),   a22 = conj(a11),
             tm  = theta * muM,   det = |a11|^2 + tm^2.
+
+        ``rows`` picks modes out of those K (a sharded rank's block).
         """
-        L1 = torch.from_numpy(self.L1c[:K]).to(self.device)
-        L2 = torch.from_numpy(self.L2c[:K]).to(self.device)
+        L1 = torch.from_numpy(self.L1c[:K][rows]).to(self.device)
+        L2 = torch.from_numpy(self.L2c[:K][rows]).to(self.device)
         a11 = L1[:, None] * self.m1[None, :] + L2[:, None] * self.kap1[None, :]
         a22 = a11.conj()
         tm = self.tm1[None, :]
@@ -247,14 +250,20 @@ def make_halfspectrum_transforms(
     ``ops.transforms.FourStepPlan``; a prime N_t has no radix split and
     falls back to 'fft', as in the JAX package). The DST runs first, on the
     real state. Unknown names raise ``ValueError`` (the JAX package falls
-    back to 'fft'; ROADMAP Queue C)."""
-    if layout is not None:
-        raise NotImplementedError(
-            "the sharded half-spectrum transforms (layout) are not ported yet: "
-            "ROADMAP Queue A item 14"
-        )
+    back to 'fft'; ROADMAP Queue C).
+
+    ``layout`` (a ``parallel.sharding.ParallelLayout``) needs 'dft', as in
+    the JAX package. x is then a canonical block and xi a ``mode_local``
+    block of the K bins; each direction is three stage moves (one
+    ``all_to_all_single`` each): the DST with the time axis split (space
+    local), the K x N_t matmuls with space split (time local), and the bins
+    split for the elementwise solve."""
     sp = space
     dev = sp.device
+    lay = resolve_layout(layout)
+    if lay.sharded and time_transform != "dft":
+        raise ValueError("sharded half-spectrum transforms require time_transform='dft'")
+    n = sp.n
     if time_transform == "dft":
         K = N_t // 2 + 1
         wgt = pairing_weights(N_t)
@@ -265,12 +274,16 @@ def make_halfspectrum_transforms(
         Si = to_device(wgt[None, :] * np.sin(ang).T, rdtype, dev)
 
         def to_spectral(x):
-            s = sp.dst(x)
-            return torch.complex(torch.einsum("kt,...tn->...kn", Cf, s), torch.einsum("kt,...tn->...kn", Sf, s))
+            s = sp.dst(lay.move(x, "canonical", "mode_local", N_t, n))
+            s = lay.move(s, "mode_local", "time_local", N_t, n)
+            xi = torch.complex(torch.einsum("kt,...tn->...kn", Cf, s), torch.einsum("kt,...tn->...kn", Sf, s))
+            return lay.move(xi, "time_local", "mode_local", K, n)
 
         def from_spectral(xi):
+            xi = lay.move(xi, "mode_local", "time_local", K, n)
             t = torch.einsum("tk,...kn->...tn", Ci, xi.real) + torch.einsum("tk,...kn->...tn", Si, xi.imag)
-            return sp.idst(t).to(rdtype)
+            t = lay.move(t, "time_local", "mode_local", N_t, n)
+            return lay.move(sp.idst(t).to(rdtype), "mode_local", "canonical", N_t, n)
 
     elif time_transform == "mxu":
         try:
@@ -320,6 +333,14 @@ def _d_inv(a11, a22, tm, inv_det):
         return join_state((a22 * ru + tm * rp) * inv_det, (a11 * rp - tm * ru) * inv_det)
 
     return D_inv
+
+
+def _reduce4(lay, z):
+    """Four partial phase sums completed over a sharded bin axis: one
+    ``all_reduce`` of the stacked sums (the identity unsharded)."""
+    if not lay.sharded:
+        return z
+    return tuple(lay.all_reduce(torch.stack(z)).unbind(0))
 
 
 def _extract4(phis, yu, yp):
@@ -385,7 +406,7 @@ def _full_phases(pl: _SpectralPlan):
     )
 
 
-def _make_ops(op: AllAtOnceOperator, pl: _SpectralPlan, time_transform: str = "fft"):
+def _make_ops(op: AllAtOnceOperator, pl: _SpectralPlan, time_transform: str = "fft", layout=None):
     """``(A_hat, D_inv, to_spectral, from_spectral)`` of the full-spectrum
     system from a prepared plan, on states ``(..., 2, N_t, n)``:
 
@@ -393,31 +414,38 @@ def _make_ops(op: AllAtOnceOperator, pl: _SpectralPlan, time_transform: str = "f
         from_spectral(xi) = real(fft(idst(xi), axis=-2))
 
     ``time_transform='dft'`` runs the time transforms as real matmuls
-    (``ops.transforms``); any other name, as in the JAX package, the FFT."""
+    (``ops.transforms``); any other name, as in the JAX package, the FFT.
+    ``layout`` (a ``parallel.sharding.ParallelLayout``): x is a canonical
+    block and xi a ``mode_local`` block of the N_t modes; the time transform
+    runs time-local, the DST and the elementwise work mode-local (two stage
+    moves each way), and A_hat's four phase sums end in one
+    ``all_reduce``."""
     sp = op.space
     rdtype = pl.rdtype
     cdtype = torch.complex64 if rdtype == torch.float32 else torch.complex128
-    a11, a22, tm, inv_det = pl.mode_diag()
-    phis, psis = _full_phases(pl)
-    extract = lambda xu, xp: _extract4(phis, xu, xp)
+    lay = resolve_layout(layout)
+    N_t, n = pl.N_t, pl.n
+    rows = lay.rows("mode_local", N_t)
+    a11, a22, tm, inv_det = pl.mode_diag(rows=rows)
+    phis, psis = (tuple(v[rows] for v in vs) for vs in _full_phases(pl))
+    extract = lambda xu, xp: _reduce4(lay, _extract4(phis, xu, xp))
     A_hat = _a_hat(a11, a22, tm, pl, extract, psis)
     D_inv = _d_inv(a11, a22, tm, inv_det)
     if time_transform == "dft":
         C_t, S_t = dft_matrices(pl.N_t, rdtype, pl.device)
-
-        def to_spectral(x):
-            return sp.dst(time_ifft_real_mm(x.to(rdtype), C_t, S_t))
-
-        def from_spectral(xi):
-            return time_fft_real_part_mm(sp.idst(xi), C_t, S_t).to(rdtype)
-
+        ifft_t = lambda x: time_ifft_real_mm(x.to(rdtype), C_t, S_t)
+        fft_t_real = lambda y: time_fft_real_part_mm(y, C_t, S_t)
     else:
+        ifft_t = lambda x: torch.fft.ifft(x.to(cdtype), dim=-2)
+        fft_t_real = lambda y: torch.fft.fft(y, dim=-2).real
 
-        def to_spectral(x):
-            return sp.dst(torch.fft.ifft(x.to(cdtype), dim=-2))
+    def to_spectral(x):
+        xh = ifft_t(lay.move(x, "canonical", "time_local", N_t, n))
+        return sp.dst(lay.move(xh, "time_local", "mode_local", N_t, n))
 
-        def from_spectral(xi):
-            return torch.fft.fft(sp.idst(xi), dim=-2).real.to(rdtype)
+    def from_spectral(xi):
+        y = lay.move(sp.idst(xi), "mode_local", "time_local", N_t, n)
+        return lay.move(fft_t_real(y).to(rdtype), "time_local", "canonical", N_t, n)
 
     return A_hat, D_inv, to_spectral, from_spectral
 
@@ -445,18 +473,20 @@ def solve_spectral(
     return from_spectral(res.x), res
 
 
-def _build_woodbury_full(op: AllAtOnceOperator, pl: _SpectralPlan, refine: int, time_transform: str):
+def _build_woodbury_full(op: AllAtOnceOperator, pl: _SpectralPlan, refine: int, time_transform: str, layout=None):
     """Full-spectrum Woodbury solve: all N_t bins of the complex spectral
     state, complex capacity matrices (the pairing that makes them real
     needs the half spectrum)."""
-    A_hat, D_inv, to_spectral, from_spectral = _make_ops(op, pl, time_transform=time_transform)
+    lay = resolve_layout(layout)
+    A_hat, D_inv, to_spectral, from_spectral = _make_ops(op, pl, time_transform=time_transform, layout=layout)
     G_h = _capacity_matrices(pl)
     G = [[to_device(G_h[:, a, b], pl.np_c, pl.device) for b in range(4)] for a in range(4)]
-    phis, psis = _full_phases(pl)
+    rows = lay.rows("mode_local", pl.N_t)
+    phis, psis = (tuple(v[rows] for v in vs) for vs in _full_phases(pl))
 
     def wb_apply(r):
         y = D_inv(r)
-        z = _extract4(phis, *split_state(y))
+        z = _reduce4(lay, _extract4(phis, *split_state(y)))
         w = [sum(G[a][b] * z[b] for b in range(4)) for a in range(4)]
         return y - D_inv(_inject4(psis, w))
 
@@ -475,19 +505,26 @@ def _build_woodbury_half(
     pl: _SpectralPlan,
     refine: int,
     time_transform: str = "fft",
+    layout=None,
 ):
     """Half-spectrum Woodbury solve ``b -> x`` on the ``K = N_t//2 + 1``
-    rfft bins (module docstring)."""
+    rfft bins (module docstring). ``layout`` (a
+    ``parallel.sharding.ParallelLayout``): b and x are canonical blocks, the
+    elementwise work runs on this rank's ``mode_local`` block of the bins,
+    and each set of four phase sums is this rank's partial sums (working
+    dtype, as unsharded) completed by one ``all_reduce``."""
     sp = op.space
     N_t = pl.N_t
     K = N_t // 2 + 1
     rdtype, np_c, dev = pl.rdtype, pl.np_c, pl.device
+    lay = resolve_layout(layout)
     to_spectral, from_spectral = make_halfspectrum_transforms(
-        sp, N_t, rdtype, time_transform=time_transform
+        sp, N_t, rdtype, layout=layout, time_transform=time_transform
     )
+    rows = lay.rows("mode_local", K)
 
-    k = np.arange(K)
-    wgt = pairing_weights(N_t)
+    k = np.arange(K)[rows]
+    wgt = pairing_weights(N_t)[rows]
     # Extraction phases carry the pairing weight; injections use plain bins.
     phiw = lambda i: to_device(wgt * np.exp(-2j * np.pi * i * k / N_t), np_c, dev)
     psi = lambda i: to_device(np.exp(2j * np.pi * i * k / N_t) / N_t, np_c, dev)
@@ -496,12 +533,12 @@ def _build_woodbury_half(
 
     G_h = _real_capacity_matrices(pl)
     G = [[to_device(G_h[:, a, b], rdtype, dev) for b in range(4)] for a in range(4)]
-    a11, a22, tm, inv_det = pl.mode_diag(K)
+    a11, a22, tm, inv_det = pl.mode_diag(K, rows=rows)
 
     D_inv = _d_inv(a11, a22, tm, inv_det)
 
     def extract(yu, yp):
-        return tuple(e.real for e in _extract4((phi_uNm1, phi_uNm2, phi_p0, phi_p1), yu, yp))
+        return _reduce4(lay, tuple(e.real for e in _extract4((phi_uNm1, phi_uNm2, phi_p0, phi_p1), yu, yp)))
 
     psis = (psi_u0, psi_u1, psi_pNm1, psi_pNm2)
     A_hat = _a_hat(a11, a22, tm, pl, extract, psis)
@@ -536,18 +573,23 @@ def build_woodbury_solver(
     'fft2', 'dft' or 'mxu'; see :func:`make_halfspectrum_transforms`)
     defaults to the packed FFT ('fft2'). ``half_spectrum=False`` solves on
     all N_t bins instead (:func:`_build_woodbury_full`; 'dft', or the FFT
-    for 'fft'/'fft2', as in the JAX package)."""
+    for 'fft'/'fft2', as in the JAX package).
+
+    ``layout`` (a ``parallel.sharding.ParallelLayout``): the sharded solve of
+    one state, b and x canonical blocks (:func:`_build_woodbury_half`); the
+    time transform defaults to 'dft' and 'mxu' is refused, as in the JAX
+    package."""
     require_full_fp32_matmul()
-    if layout is not None:
-        raise NotImplementedError(
-            "the sharded Woodbury solve is not ported yet (ROADMAP Queue A item 14)"
-        )
-    time_transform = "fft2" if time_transform is None else time_transform
+    sharded = resolve_layout(layout).sharded
+    if time_transform is None:
+        time_transform = "dft" if sharded else "fft2"
+    if time_transform == "mxu" and sharded:
+        raise ValueError("time_transform='mxu' is the single-device fast path; sharded runs use 'dft'")
     if half_spectrum is False:
         if time_transform == "mxu":
             raise ValueError("time_transform='mxu' is implemented for the half-spectrum pipeline (the default)")
-        return _build_woodbury_full(op, _spectral_plan(op), refine, time_transform)
-    return _build_woodbury_half(op, _spectral_plan(op), refine, time_transform=time_transform)
+        return _build_woodbury_full(op, _spectral_plan(op), refine, time_transform, layout=layout)
+    return _build_woodbury_half(op, _spectral_plan(op), refine, time_transform=time_transform, layout=layout)
 
 
 # --------------------------------------------------------------------------

@@ -26,6 +26,7 @@ import torch
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
 from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator, join_state, split_state
 from optimal_control_paradiag_torch.paradiag.spectral import _make_ops, _spectral_plan
+from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
 from optimal_control_paradiag_torch.utils.constants import to_device
 
 
@@ -47,18 +48,21 @@ def build_symmetric_system(
     - ``swap_rhs(b) = swap(b)``.
 
     Solve ``matvec_sym(x) = swap_rhs(b)``; x is in the original unknown
-    order. States may carry leading batch axes."""
-    if layout is not None:
-        raise NotImplementedError(
-            "the sharded symmetric system (layout) is not ported yet: ROADMAP Queue A item 14"
-        )
+    order. States may carry leading batch axes. ``layout`` (a
+    ``parallel.sharding.ParallelLayout``): all three act on this rank's
+    canonical blocks (the matvec with its halos, the preconditioner through
+    the full-spectrum stage moves, the scalar cut to the rank's modes);
+    ``time_transform`` then defaults to 'dft', as in the JAX package."""
     require_full_fp32_matmul()
+    lay = resolve_layout(layout)
+    if time_transform is None:
+        time_transform = "dft" if lay.sharded else "fft"
     pl = _spectral_plan(op, mass_surrogate=True)
-    _, _, to_s, from_s = _make_ops(op, pl, time_transform=time_transform or "fft")
-    inv_sqrt_det = to_device(1.0 / np.sqrt(pl.det_h), pl.rdtype, pl.device)
+    _, _, to_s, from_s = _make_ops(op, pl, time_transform=time_transform, layout=layout)
+    inv_sqrt_det = to_device(1.0 / np.sqrt(pl.det_h[lay.rows("mode_local", pl.N_t)]), pl.rdtype, pl.device)
 
     def matvec_sym(x: torch.Tensor) -> torch.Tensor:
-        return _swap(op.matvec(x))
+        return _swap(op.matvec(x, layout=layout))
 
     def pc_spd(r: torch.Tensor) -> torch.Tensor:
         return from_s(to_s(r) * inv_sqrt_det)

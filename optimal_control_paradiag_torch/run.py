@@ -15,12 +15,18 @@ constants, pc/complex dispatch, wall-clock prints, convergence sweep writing
   python -m optimal_control_paradiag_torch.run --dim 2                # 2D consistent mass
   python -m optimal_control_paradiag_torch.run --mesh-file mesh.npz   # a triangle mesh
   python -m optimal_control_paradiag_torch.run --rebuild-eig-cache    # the N = 144 mesh's eigenbasis
+  python -m optimal_control_paradiag_torch.run --mesh 4,2 --platform cpu         # sharded, 8 CPU ranks
+  torchrun --nproc-per-node 4 -m optimal_control_paradiag_torch.run --mesh 4,1   # sharded, 4 cards
 
 It runs on the CUDA card unless ``--platform cpu`` is given, in both dtypes
-(the JAX CLI picks the CPU for float64, which its TPU lacks). The sharded
-``--mesh`` runs (with or without ``--mesh-file``) are not ported yet and
-exit naming their ROADMAP item. The JAX CLI's persistent compilation cache
-has no counterpart here but the kernels' build cache (``csrc/_build/``).
+(the JAX CLI picks the CPU for float64, which its TPU lacks). ``--mesh
+TIME,SPACE`` runs the solve sharded over a grid of processes
+(``parallel/solve.py``), one per device: on the CPU the CLI starts the gloo
+group itself when no launcher did; on the cards each rank comes from
+``torchrun`` (one card per rank), and a grid larger than the visible cards
+is an error. At start-up the CLI enables the build cache of the compiled
+kernels (``utils/compilation_cache.py``), where the JAX CLI enables its
+persistent compilation cache.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
+import tempfile
 import time
 
 # Where --rebuild-eig-cache writes eig_basis_N{N}.npz (git-ignored).
@@ -79,8 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--mesh",
         default=None,
         metavar="TIME,SPACE",
-        help="run the solve sharded over a ('time','space') device mesh, e.g. "
-        "'4,2' (not ported yet: ROADMAP Queue A item 14)",
+        help="run the solve sharded over a ('time','space') grid of processes, "
+        "e.g. '4,2': on the CPU a gloo group the CLI starts itself, on the "
+        "cards one torchrun rank per card",
     )
     p.add_argument(
         "--mesh-file",
@@ -88,7 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
         metavar="NPZ",
         help="solve on an arbitrary triangle mesh: an .npz with 'points' (n,2) "
         "float and 'triangles' (m,3) int, optional boolean 'interior' "
-        "(the wave model; with --mesh not ported yet: ROADMAP Queue A item 14)",
+        "(the wave model; with --mesh the sharded eigenbasis solve)",
     )
     p.add_argument("--sweep", action="store_true", help="run the N=5..70 convergence sweep (ref :583-631)")
     p.add_argument(
@@ -131,11 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _exit_not_ported(what: str, item: str):
-    raise SystemExit(f"{what} is not ported yet: ROADMAP Queue A item {item}")
-
-
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     if args.mesh and args.sweep:
         raise SystemExit(
@@ -155,14 +161,17 @@ def main(argv=None):
             "structured N_x=N_t=N problems, which would silently drop the "
             "user mesh"
         )
+    from optimal_control_paradiag_torch.utils.compilation_cache import enable_persistent_cache
+
+    enable_persistent_cache()
     if args.rebuild_eig_cache:
         return rebuild_eig_cache(args)
-    if args.mesh:
-        _exit_not_ported("--mesh (the sharded solve)", "14")
     # --nx default resolution: None means "not given" so per-mode defaults
     # (wave: 80, heat sweep: 128) never collide with an explicit value.
     if args.nx is None and not (args.model == "heat" and args.sweep):
         args.nx = 80
+    if args.mesh:
+        return run_mesh(args, argv)
     import torch
 
     from optimal_control_paradiag_torch import ProblemConfig, SolverConfig, WaveControlProblem
@@ -248,6 +257,172 @@ def main(argv=None):
             plot_residual_history(
                 sol.result.residual_history, out=os.path.join(args.out, "residuals.png")
             )
+    return record
+
+
+def _grid(args):
+    try:
+        n_time, n_space = (int(v) for v in args.mesh.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh expects 'TIME,SPACE' integers, got {args.mesh!r}") from None
+    if n_time < 1 or n_space < 1:
+        raise SystemExit(f"--mesh needs positive axes, got {args.mesh!r}")
+    return n_time, n_space
+
+
+# rank 0 of a CPU group the CLI started writes its record here
+_RECORD_ENV = "PARADIAG_RUN_RECORD"
+
+
+def run_mesh(args, argv):
+    """``--mesh``: the sharded solve. Joins the process group this run
+    belongs to, or starts one: with ``--platform cpu`` and no launcher, a
+    gloo group of ``TIME*SPACE`` ranks running this command
+    (``parallel.multihost.launch_cpu_group``), whose rank-0 record is
+    returned; on the cards, one rank per card from ``torchrun`` (a 1x1 grid
+    runs in this process). Never puts a rank on the CPU unless asked."""
+    import torch
+    import torch.distributed as dist
+
+    from optimal_control_paradiag_torch.parallel import multihost
+
+    n_time, n_space = _grid(args)
+    need = n_time * n_space
+    if args.model == "heat" and args.method not in ("woodbury", "gmres", "minres"):
+        raise SystemExit(f"--model heat with --mesh supports woodbury/gmres/minres, not {args.method!r}")
+    if args.mesh_file and args.method != "woodbury":
+        raise SystemExit(
+            "--mesh-file with --mesh supports --method woodbury (the eigenbasis "
+            "direct solve); other methods dispatch on structured spaces"
+        )
+    launched = dist.is_initialized() or multihost.INIT_ENV in os.environ or "WORLD_SIZE" in os.environ
+    if args.platform == "cpu":
+        if not launched:
+            with tempfile.TemporaryDirectory(prefix="paradiag_mesh_") as tmp:
+                rec_path = os.path.join(tmp, "record.json")
+                pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+                env = dict(os.environ, **{_RECORD_ENV: rec_path})
+                env["PYTHONPATH"] = os.pathsep.join(p for p in (pkg_root, env.get("PYTHONPATH")) if p)
+                done = multihost.launch_cpu_group(["-m", "optimal_control_paradiag_torch.run", *argv], need, env=env)
+                sys.stdout.write(done[0].stdout)
+                with open(rec_path) as f:
+                    return json.load(f)
+        multihost.initialize(device="cpu")
+        device = torch.device("cpu")
+    elif launched:  # one rank per card, from torchrun
+        multihost.initialize(device="cuda")
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if need > count:
+            raise SystemExit(
+                f"--mesh {args.mesh} needs {need} ranks, one per card, and {count} CUDA card(s) are "
+                "visible; use fewer ranks, or --platform cpu for a CPU group"
+            )
+        if need > 1:
+            raise SystemExit(f"--mesh {args.mesh} on the cards: launch with torchrun --nproc-per-node {need}")
+        with multihost.group_of_one(device="cuda"):
+            return run_sharded(args, n_time, n_space, torch.device("cuda", torch.cuda.current_device()))
+    if dist.get_world_size() < need:
+        raise SystemExit(f"--mesh {args.mesh} needs {need} ranks, the group has {dist.get_world_size()}")
+    return run_sharded(args, n_time, n_space, device)
+
+
+def run_sharded(args, n_time, n_space, device):
+    """The sharded solve on this rank (JAX ``run.py:run_sharded``): both
+    model families, and ``--mesh-file`` through the eigenbasis Woodbury
+    solve. Rank 0 prints the JSON record (the JAX CLI's fields plus the
+    layout's collective counts) and returns it; ranks outside the grid
+    return None."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from optimal_control_paradiag_torch import ProblemConfig, SolverConfig, WaveControlProblem
+    from optimal_control_paradiag_torch.parallel.sharding import make_layout
+    from optimal_control_paradiag_torch.parallel.solve import gather, make_sharded_heat_solver, make_sharded_solver
+
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    solver = SolverConfig(
+        method=args.method, pc=None if args.pc == "none" else args.pc, pc_variant=args.pc_variant,
+        inner=args.inner, rtol=args.rtol, restart=args.restart, maxiter=args.maxiter,
+    )
+    layout = make_layout(n_time, n_space)
+    if layout is None:
+        return None
+    space = None
+    if args.mesh_file:
+        # a user mesh rides the sharded Woodbury stage layouts over its
+        # pencil eigenbasis (the V products are mode-local: no all-gather)
+        from optimal_control_paradiag_torch.fem.general import make_general_space
+        from optimal_control_paradiag_torch.paradiag.eigbasis import EigBasisSpace, build_eig_basis
+
+        z = np.load(args.mesh_file)
+        gsp = make_general_space(z["points"], z["triangles"], dtype=dtype,
+                                 interior=z["interior"] if "interior" in z.files else None, device=device)
+        # rank 0 builds the basis and every rank transforms with its V and
+        # applies its eigenvalues (with its grade, for the step count)
+        grades = ("f64", "f32", "f32_sdc")
+        if layout.index == 0:
+            basis = build_eig_basis(gsp, method=args.eig_method)
+            V, grade = basis.V, grades.index(basis.quality)
+            lam = torch.as_tensor(basis.lam, dtype=torch.float64, device=device)
+        else:
+            V = torch.empty((gsp.n, gsp.n), dtype=dtype, device=device)
+            lam, grade = torch.empty(gsp.n, dtype=torch.float64, device=device), 0
+        grade_t = layout.broadcast(torch.tensor([grade], dtype=torch.int64, device=device))
+        space = EigBasisSpace(base=gsp, lam=layout.broadcast(lam).cpu().numpy(), V=layout.broadcast(V),
+                              quality=grades[int(grade_t.item())])
+        args.dim = 2
+    cfg = ProblemConfig(N_x=args.nx, N_t=args.nt, T=args.T, gamma=args.gamma,
+                        dim=args.dim, mass=args.mass, dtype=dtype)
+    if args.model == "heat":
+        from optimal_control_paradiag_torch.models.heat import HeatControlProblem, HeatSolution
+
+        prob = HeatControlProblem(cfg, device=device)
+        run, sharding = make_sharded_heat_solver(prob, solver, layout)
+    else:
+        prob = WaveControlProblem(cfg, device=device, space=space)
+        run, sharding = make_sharded_solver(prob, solver, layout)
+    b = sharding.shard(prob.rhs) if sharding is not None else prob.rhs
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    times = {}
+    for stage in ("solve (compile + run)", "solve (cached)"):
+        layout.counts.clear()
+        sync()
+        t0 = time.perf_counter()
+        x, res = run(b)
+        sync()
+        times[stage] = (time.perf_counter() - t0) * 1e3
+    counts = dict(layout.counts)
+    N_t, n = prob.rhs.shape[-2:]
+    x = gather(layout, x, N_t, n)
+    if args.model == "heat":
+        s = math.sqrt(cfg.gamma)
+        sol = HeatSolution(u=x[0] / s, p=x[1], result=res)
+        resid = prob.relative_residual(sol)
+    else:
+        from optimal_control_paradiag_torch.models.wave import WaveSolution
+
+        u, p = prob._unscale(x)
+        sol = WaveSolution(u=u, p=p, result=res)
+        resid = float(prob.residual_norm(sol))
+    record = {
+        "mesh": {"time": n_time, "space": n_space, "devices": n_time * n_space},
+        "model": args.model,
+        "iterations": int(res.iterations) if res is not None else None,
+        "residual": resid,
+        "relative_residual_f64": prob.relative_residual_f64(sol) if layout.index == 0 else None,
+        "timings_ms": times,
+        "collectives": counts,
+    }
+    if layout.index == 0:
+        print(json.dumps(record, indent=2))
+        if _RECORD_ENV in os.environ:
+            with open(os.environ[_RECORD_ENV], "w") as f:
+                json.dump(record, f)
     return record
 
 

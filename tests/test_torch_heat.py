@@ -36,6 +36,17 @@ CASES = [
 IDS = ["1d-consistent", "1d-odd-gamma", "1d-lumped", "2d-lumped"]
 
 
+@pytest.fixture
+def layout_1x1(tmp_path):
+    """A 1x1 grid on a gloo group of this process alone: the layout still
+    issues every collective (to itself)."""
+    from optimal_control_paradiag_torch.parallel import multihost
+    from optimal_control_paradiag_torch.parallel.sharding import make_layout
+
+    with multihost.group_of_one(device="cpu", init_method=f"file://{tmp_path}/store", timeout_s=60):
+        yield make_layout(1, 1)
+
+
 def _close(ref, got, tol):
     ref, got = np.asarray(ref), np.asarray(got)
     assert ref.shape == got.shape
@@ -229,29 +240,41 @@ def test_dst_method_is_passed_through():
     [(ProblemConfig(N_x=6, N_t=6, dim=2), SolverConfig(method="woodbury"))],
     ids=["2d-consistent"],
 )
-def test_unported_paths_raise(cfg, solver):
+def test_unported_paths_raise(cfg, solver, layout_1x1):
     """The 2D consistent mass's ``method='woodbury'`` (tensor GMRES) solves
-    in the port as in the JAX package; of its builders only the sharded one
-    (ROADMAP Queue A item 14) still raises."""
+    in the port as in the JAX package. Its sharded builder is ported too: on
+    this space the exact SMW solve raises as the unsharded one does, and
+    the tensor-mass surrogate's solve equals the unsharded one."""
     prob = HeatControlProblem(cfg, device="cpu")
     sol = prob.solve(solver)
     assert bool(sol.result.converged) and prob.relative_residual_f64(sol) < 1e-8
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 14"):
-        prob.build_woodbury_solver(layout=object())
+    with pytest.raises(ValueError, match="sine-diagonalizable"):
+        prob.build_woodbury_solver(layout=layout_1x1)
+    want = prob.build_woodbury_solver(refine=0, mass_surrogate=True, time_transform="dft")(prob.rhs)
+    got = prob.build_woodbury_solver(refine=0, mass_surrogate=True, layout=layout_1x1)(prob.rhs)
+    _close(want, got, 1e-13)
 
 
 @pytest.mark.parametrize(
     "call",
     ["build_tensor_gmres_solver", "sharded"],
 )
-def test_unported_builders_raise(call):
-    """The sharded builder raises naming its ROADMAP item; the tensor GMRES
-    builder is ported, and on a diagonalizable space its preconditioner is
-    the exact solve: one iteration, as in the JAX package."""
+def test_unported_builders_raise(call, tmp_path):
+    """Both builders are ported. The sharded one on a 1x1 grid (a gloo
+    group of this process) equals the unsharded solve with the same 'dft'
+    time transform, its default there; the tensor GMRES builder on a
+    diagonalizable space has the exact solve as preconditioner: one
+    iteration, as in the JAX package."""
     tp = HeatControlProblem(ProblemConfig(N_x=8, N_t=6), device="cpu")
     if call == "sharded":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-            tp.build_woodbury_solver(layout=object())
+        from optimal_control_paradiag_torch.parallel import multihost
+        from optimal_control_paradiag_torch.parallel.sharding import make_layout
+
+        with multihost.group_of_one(device="cpu", init_method=f"file://{tmp_path}/store", timeout_s=60):
+            layout = make_layout(1, 1)
+            got = tp.build_woodbury_solver(layout=layout)(tp.rhs)
+            assert layout.counts == {"all_to_all": 6, "all_reduce": 3}
+        _close(tp.build_woodbury_solver(time_transform="dft")(tp.rhs), got, 1e-13)
     else:
         _, res = getattr(tp, call)(with_result=True)(tp.rhs)
         assert bool(res.converged) and int(res.iterations) == 1

@@ -28,6 +28,17 @@ from optimal_control_paradiag_tpu.paradiag.pc import build_preconditioner as j_b
 torch.set_num_threads(1)
 
 
+@pytest.fixture
+def layout_1x1(tmp_path):
+    """A 1x1 grid on a gloo group of this process alone: the layout still
+    issues every collective (to itself)."""
+    from optimal_control_paradiag_torch.parallel import multihost
+    from optimal_control_paradiag_torch.parallel.sharding import make_layout
+
+    with multihost.group_of_one(device="cpu", init_method=f"file://{tmp_path}/store", timeout_s=60):
+        yield make_layout(1, 1)
+
+
 def _close(ref, got, tol):
     ref, got = np.asarray(ref), np.asarray(got)
     assert ref.shape == got.shape
@@ -131,10 +142,17 @@ def test_pc_refusals():
         build_preconditioner(top2, variant="eig")
 
 
-def test_sharded_pc_raises():
+def test_sharded_pc_raises(layout_1x1):
+    """The sharded preconditioner is ported: on a 1x1 grid (a gloo group of
+    this process) it equals the unsharded apply with the 'dft' time
+    transform, its default there, and each apply moves the state through
+    four stage layouts."""
     _, top = _ops(1, 8, 7)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_preconditioner(top, layout=object())
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(top.shape))
+    for variant in ("fulldiag", "eig"):
+        got = build_preconditioner(top, variant=variant, layout=layout_1x1)(r)
+        _close(build_preconditioner(top, variant=variant, time_transform="dft")(r), got, 1e-13)
+    assert layout_1x1.counts == {"all_to_all": 8}
 
 
 HEAT_CASES = [

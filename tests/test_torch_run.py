@@ -201,8 +201,8 @@ def test_cli_platform_x64_and_profile_flags():
     "argv,match",
     [
         (["--mesh", "2,1", "--sweep"], "cannot be combined"),
-        (["--mesh", "2,1"], "item 14"),
-        (["--mesh-file", "m.npz", "--mesh", "2,1"], "item 14"),
+        (["--mesh", "2,1"], "one per card"),
+        (["--mesh-file", "m.npz", "--mesh", "2,1"], "supports --method woodbury"),
         (["--mesh-file", "m.npz", "--model", "heat"], "wave model only"),
         (["--model", "heat", "--method", "spectral", "--platform", "cpu"], "heat supports"),
     ],
@@ -216,8 +216,9 @@ def test_cli_refusals(argv, match, tmp_path):
 def test_cli_methods_not_ported_raise(tmp_path):
     """--mesh-file with --method woodbury: the default direct solve of a
     triangle mesh, the eigenbasis solve (eig GMRES at this size), runs as
-    the JAX CLI runs it (the same record and solution); with --mesh (the
-    sharded solve) it still exits naming ROADMAP Queue A item 14."""
+    the JAX CLI runs it (the same record and solution); with --mesh 2,1
+    and --platform cpu the CLI starts a gloo group of two ranks and runs the
+    sharded eigenbasis Woodbury solve (the JAX CLI's record fields)."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is missing: no native host runtime")
     from optimal_control_paradiag_torch import native
@@ -229,8 +230,9 @@ def test_cli_methods_not_ported_raise(tmp_path):
     assert set(rt) == set(rj) and rt["iterations"] is None is rj["iterations"] and rt["converged"]
     assert abs(rt["error_aligned_metric"] - rj["error_aligned_metric"]) <= 1e-10
     _close(np.load(dj / "solution.npz")["u_out"], np.load(dt / "solution.npz")["u_out"], 1e-10)
-    with pytest.raises(SystemExit, match="item 14"):
-        t_run.main(argv + ["--mesh", "2,1", "--platform", "cpu", "--out", str(tmp_path)])
+    rec = t_run.main(argv + ["--mesh", "2,1", "--platform", "cpu", "--out", str(tmp_path)])
+    assert rec["mesh"] == {"time": 2, "space": 1, "devices": 2} and rec["iterations"] is None
+    assert rec["residual"] <= 1e-10 and rec["collectives"] == {"all_to_all": 6, "all_reduce": 3}
 
 
 def _wall_mesh_space(N, dtype):
@@ -472,10 +474,32 @@ def test_warm_start_resumes_with_fewer_iterations(tmp_path):
     np.testing.assert_allclose(resumed.u.numpy(), cold.u.numpy(), atol=1e-7)
 
 
-def test_sharded_checkpoints_name_their_item():
-    for fn, args in ((t_ckpt.save_sharded, ("p", None)), (t_ckpt.load_sharded, ("p",))):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn(*args)
+def test_sharded_checkpoints_name_their_item(tmp_path):
+    """The sharded checkpoints are ported: a single-process file covers the
+    array and loads in both packages, a JAX file loads in the port, and
+    files that do not cover the array raise in both (the per-rank files of
+    a sharded run: tests/test_torch_parallel.py)."""
+    import jax.numpy as jnp
+
+    from optimal_control_paradiag_tpu.utils import checkpoint as j_ckpt
+
+    x = np.random.default_rng(0).standard_normal((2, 5, 3))
+    fname = t_ckpt.save_sharded(str(tmp_path / "t"), torch.from_numpy(x))
+    assert fname.endswith("t_p000.npz")
+    np.testing.assert_array_equal(t_ckpt.load_sharded(str(tmp_path / "t")), x)
+    np.testing.assert_array_equal(j_ckpt.load_sharded(str(tmp_path / "t")), x)
+    j_ckpt.save_sharded(str(tmp_path / "j"), jnp.asarray(x))
+    np.testing.assert_array_equal(t_ckpt.load_sharded(str(tmp_path / "j")), x)
+    with np.load(tmp_path / "t_p000.npz") as d:
+        piece = {k: d[k] for k in d.files}
+    piece["shard0_data"] = x[:, :2]
+    piece["shard0_stop"] = np.asarray([2, 2, 3], np.int64)
+    np.savez(tmp_path / "half_p000.npz", **piece)
+    for load in (t_ckpt.load_sharded, j_ckpt.load_sharded):
+        with pytest.raises(ValueError, match="does not cover"):
+            load(str(tmp_path / "half"))
+    with pytest.raises(FileNotFoundError):
+        t_ckpt.load_sharded(str(tmp_path / "none"))
 
 
 # ------------------------------------------------------------------ monitor

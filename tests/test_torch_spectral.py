@@ -107,11 +107,26 @@ def test_residual_oracle_matches_jax(kw):
         _assert_close(j_sp._np_dst_axis(g, ax), t_sp._np_dst_axis(g, ax), 1e-12)
 
 
-@pytest.mark.parametrize("kw", [dict(layout=object())], ids=["layout"])
-def test_unported_solver_options_raise(kw):
+@pytest.mark.parametrize("kw", [dict(layout=True)], ids=["layout"])
+def test_unported_solver_options_raise(kw, tmp_path):
+    """The sharded option is ported: on a 1x1 grid (a gloo group of this
+    process) the solve equals the unsharded one with the 'dft' time
+    transform (its default there), and 'mxu' is refused, as in the JAX
+    package."""
+    from optimal_control_paradiag_torch.parallel import multihost
+    from optimal_control_paradiag_torch.parallel.sharding import make_layout
+
     _, top = _ops(CASES[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_sp.build_woodbury_solver(top, **kw)(torch.zeros(top.shape, dtype=torch.float64))
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(top.shape))
+    with multihost.group_of_one(device="cpu", init_method=f"file://{tmp_path}/store", timeout_s=60):
+        layout = make_layout(1, 1)
+        got = t_sp.build_woodbury_solver(top, layout=layout)(b)
+        with pytest.raises(ValueError, match="mxu"):
+            t_sp.build_woodbury_solver(top, layout=layout, time_transform="mxu")
+        with pytest.raises(ValueError, match="dft"):
+            t_sp.make_halfspectrum_transforms(top.space, top.N_t, top.space.dtype, layout=layout, time_transform="fft")
+    want = t_sp.build_woodbury_solver(top, time_transform="dft")(b)
+    assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
 
 
 def test_unknown_time_transform_raises():
