@@ -7,9 +7,10 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``, and no network. Phases, each of which fails the run:
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
-2. build both kernel sources at once, each by its own nvcc: the fused
-   Woodbury kernels of ``csrc/woodbury.cu`` (slab and streaming) and those
-   of ``csrc/heat_woodbury.cu`` (slab and streaming), beside the variant
+2. build the three kernel sources at once, each by its own nvcc: the fused
+   Woodbury kernels of ``csrc/woodbury.cu`` (slab and streaming), those
+   of ``csrc/heat_woodbury.cu`` (slab and streaming) and the bf16x3 GEMM
+   of ``csrc/bf16x3_gemm.cu`` (phase 42), beside the variant
    builds used for measurement only (``-DWOODBURY_PROFILE``,
    ``-DHEAT_WOODBURY_PROFILE``, the same with ``-DHEAT_WOODBURY_SKIP_B``,
    ``-DHEAT_WOODBURY_PLANES``); print each kernel's ptxas registers and
@@ -183,6 +184,29 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     (the direct solves: 6 all_to_all and 3 all_reduce, no all_gather) and
     its device ms beside the unsharded solve's.
 
+42. (in phase 2) the bf16x3 GEMM B3 built with the other sources, its
+    ptxas registers and spills printed;
+43. B3 against its plain twin on the card in float32 (relative max-abs
+    <= 1e-5) and against the float64 DST (<= 2e-5): the headline DST
+    (2048 x 2047 x 2047) on the main path's right-hand side and on a
+    seeded random one, the batched DST (M = 16384), both axes of the heat
+    2D lumped DST (255), one row, and odd shapes (1 x 1 x 1, 17 x 33 x 9);
+44. ``dst_precision='high'`` through the entry points, the JAX bench's
+    stage_woodbury_polished: ``WaveControlProblem(ProblemConfig(N_x=2048,
+    N_t=1024, dtype=float32, dst_precision='high')).solve(SolverConfig(
+    method='woodbury', use_pallas=True, polish=1))`` with the counts of B3
+    and B1 set to 0 just before and read just after (4 and 2), float64
+    oracle <= 5e-4 and <= 1.25 x the 'highest' polished solve's (phase
+    11); the same without polish (2 and 1, printed, ungated); the heat 1D
+    headline (4 and 2 B2, <= 2.24e-2) and heat 2D lumped (8 and 2, <= 1.25
+    x its 'highest' polished residual);
+45. times: B3 at the headline beside its bound (bf16 tensor-core
+    operations), its twin, the same function as the split and three
+    cuBLAS bf16 products (``torch.mm(..., out_dtype=torch.float32)``,
+    null with the reason where torch lacks it), the FP32 cuBLAS DST, B3
+    batched and on a 2D axis, and the polished wave and heat solves with
+    'high' against 'highest'.
+
 ``python3 chip_smoke.py --sharded`` runs phase 1 and phases 37-41 alone.
 ``python3 chip_smoke.py --cards N`` (a machine with N cards) runs the
 sharded CLI (``run.py --mesh``) under ``torch.distributed.run``, one NCCL
@@ -255,6 +279,14 @@ L2_FLUSH_BYTES = 128 * 2**20  # written before each timed run: over twice the H1
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense tensor cores
+# B3, the bf16x3 GEMM (phases 42-45). Kernel vs twin, relative max-abs: the
+# same exact bf16 products, summed in another float32 order. Against the
+# float64 DST: the twin reads 3.55e-6 at the headline on the CPU.
+B3_TOL = 1e-5
+B3_F64_TOL = 2e-5
+WAVE_HIGH_MAX_REL_RESIDUAL = 5e-4  # bench.py stage_woodbury_polished of the JAX package
+HIGH_RESIDUAL_FACTOR = 1.25  # a 'high' polished solve against the 'highest' one
 
 
 def fail(msg: str) -> int:
@@ -343,10 +375,11 @@ def count_syncs(torch, fn):
     return out, {"sync_debug": sum(sites.values()), "explicit_calls": calls["n"], "sync_sites": dict(sites)}
 
 
-def roofline(nbytes: int, flops: int) -> dict:
-    """The least time the card could take: bytes over the HBM rate or float32
-    operations over the non-tensor float32 peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+def roofline(nbytes: int, flops: int, flops_per_s: float = FP32_FLOPS_PER_S) -> dict:
+    """The least time the card could take: bytes over the HBM rate or the
+    operations over their peak (by default float32 outside the tensor
+    cores), whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -363,8 +396,13 @@ def print_ptxas(log: str) -> None:
     for line in log.splitlines():
         m = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
         if m:
-            d = re.search(r"\d+([a-z_]+_kernel)I([fd])(?:Li(\d+)E)?", m.group(1))
-            name = f"{d.group(1)}<{d.group(2)}{',' + d.group(3) if d.group(3) else ''}>" if d else m.group(1)
+            d = re.search(r"\d+([a-z0-9_]+_kernel)(?:I([fd])(?:Li(\d+)E)?)?", m.group(1))
+            if d is None:
+                name = m.group(1)
+            elif d.group(2) is None:
+                name = d.group(1)
+            else:
+                name = f"{d.group(1)}<{d.group(2)}{',' + d.group(3) if d.group(3) else ''}>"
         elif "registers" in line or "spill" in line:
             print(f"ptxas: {name}: {line.strip()}", flush=True)
 
@@ -2015,6 +2053,190 @@ def cards_phases(torch, smi, cards: int):
     return None
 
 
+# B3, the bf16x3 GEMM (phases 42-45): dst_precision='high' on the JAX bench's
+# stage_woodbury_polished (bench.py:258-307: 'high' + refine = 1 + polish = 1
+# at the headline, gate rel <= 5e-4), through the entry point with the fused
+# kernel; the heat family takes the same option.
+
+
+def b3_library(torch, b3, a, b_hi, b_lo):
+    """The same function from one library call per product: the split and
+    three cuBLAS bf16 products with float32 output (``torch.mm(...,
+    out_dtype=torch.float32)``), summed in the twin's order. A yardstick
+    only: the port never calls it."""
+    a_hi, a_lo = b3.split_bf16(a)
+    mm = lambda x, y: torch.mm(x, y, out_dtype=torch.float32)
+    return (mm(a_hi, b_lo) + mm(a_lo, b_hi)) + mm(a_hi, b_hi)
+
+
+def bf16x3_phases(torch, smi, flush, wave_highest_polished: float):
+    """Phases 43-45 (module docstring). ``wave_highest_polished``: phase
+    11's residual of the 'highest' polished wave headline. Returns (an error
+    message or None, B3's entry of the kernels line)."""
+    import numpy as np
+
+    from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, SolverConfig, WaveControlProblem
+    from optimal_control_paradiag_torch.fem.space import make_space
+    from optimal_control_paradiag_torch.ops import bf16x3 as b3
+    from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
+    from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
+
+    def high(cls, shape, prec="high"):
+        return cls(ProblemConfig(**shape, dtype=torch.float32, dst_precision=prec), device="cuda")
+
+    # 43. B3 against its twin on the card, at the main path's shapes
+    wave, heat1, heat2 = high(WaveControlProblem, dict(N_x=N_X, N_t=N_T)), high(HeatControlProblem, HEAT_1D), \
+        high(HeatControlProblem, HEAT_2D)
+    rng = np.random.default_rng(12)
+    rand = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+
+    def sine64(N_x):
+        i = np.arange(1, N_x)
+        return torch.from_numpy(np.sin(np.pi * np.outer(i, i) / N_x)).cuda()
+
+    ws, hs = wave.space.dst_matrix_split, heat2.space.dst_matrix_split
+    n1, n2 = wave.space.n1d, heat2.space.n1d
+    Vw, Vh = sine64(N_X), sine64(HEAT_2D["N_x"])
+    gx = heat2.rhs.reshape(-1, n2)
+    gy = b3.bf16x3_matmul(gx, hs).reshape(-1, n2, n2).transpose(-1, -2).contiguous().reshape(-1, n2)
+    b_odd = {shape: rand(*shape) for shape in ((1, 1), (33, 9))}
+    cases = [
+        ("headline DST, main-path rhs", wave.rhs.reshape(-1, n1), ws, Vw),
+        ("headline DST, random", rand(2 * N_T, n1), ws, Vw),
+        ("batched DST (B = 8), random", rand(8 * 2 * N_T, n1), ws, Vw),
+        ("heat 2D x axis, main-path rhs", gx, hs, Vh),
+        ("heat 2D y axis, main-path rhs", gy, hs, Vh),
+        ("heat 2D axis, random", rand(2 * HEAT_2D["N_t"] * n2, n2), hs, Vh),
+        ("M = 1 DST, random", rand(1, n1), ws, Vw),
+        ("1 x 1 x 1", rand(1, 1), b3.split_matrix(b_odd[(1, 1)]), b_odd[(1, 1)].double()),
+        ("17 x 33 x 9", rand(17, 33), b3.split_matrix(b_odd[(33, 9)]), b_odd[(33, 9)].double()),
+    ]
+    max_abs_err = None
+    for label, a, split, b64 in cases:
+        out = b3.bf16x3_matmul(a, split)
+        torch.cuda.synchronize()
+        twin = b3.bf16x3_matmul_reference(a, split.hi, split.lo)
+        err = rel_err(torch, out, twin)
+        err64 = rel_err(torch, out.double(), a.double() @ b64)
+        dst = "DST" in label or "axis" in label
+        print(json.dumps({"phase": "b3_vs_twin", "case": label, "M": a.shape[0], "K": a.shape[1], "N": split.n,
+                          "rel_max_abs_err": err, "tol": B3_TOL, "twin_vs_float64": rel_err(torch, twin.double(), a.double() @ b64),
+                          "kernel_vs_float64": err64, "float64_gate": B3_F64_TOL if dst else None}), flush=True)
+        if not err <= B3_TOL:
+            return f"B3 disagrees with its twin ({label}): {err:.3e} > {B3_TOL:.0e}", None
+        if dst and not err64 <= B3_F64_TOL:
+            return f"B3 misses the float64 DST ({label}): {err64:.3e} > {B3_F64_TOL:.0e}", None
+        if max_abs_err is None:
+            max_abs_err = (out - twin).abs().max().item()
+    del gy, cases, b_odd
+
+    # 44. the 'high' polished paths through the entry points, each with the
+    # counts of B3 and the family's kernel set to 0 just before and read
+    # just after: B3 once per DST (per axis in 2D), two DSTs per base solve,
+    # and two base solves with polish = 1
+    pol = SolverConfig(method="woodbury", use_pallas=True, polish=1)
+    runs = {}
+    for name, prob, cfg, fused, want in (
+        ("wave_headline_high_polished", wave, pol, cw.fused_woodbury, (4, 2)),
+        ("wave_headline_high_unpolished", wave, SolverConfig(method="woodbury", use_pallas=True), cw.fused_woodbury, (2, 1)),
+        ("heat_1d_high_polished", heat1, pol, ch.fused_heat, (4, 2)),
+        ("heat_2d_high_polished", heat2, pol, ch.fused_heat, (8, 2)),
+    ):
+        b3.bf16x3_matmul.launches = fused.launches = 0
+        t0 = time.perf_counter()
+        sol = prob.solve(cfg)
+        torch.cuda.synchronize()
+        first_solve_s = time.perf_counter() - t0
+        launches = (b3.bf16x3_matmul.launches, fused.launches)
+        if launches != want:
+            return f"{name} launched (B3, fused) {launches}, not {want}", None
+        if sol.u.shape != (prob.config.N_t, prob.space.n) or not (torch.isfinite(sol.u).all() and torch.isfinite(sol.p).all()):
+            return f"{name}: the solution is not finite or has {tuple(sol.u.shape)}", None
+        runs[name] = (prob.relative_residual_f64(sol), launches, first_solve_s)
+    highest = {"wave_headline": wave_highest_polished}
+    heat_highest = {}
+    for label, shape in (("heat_1d", HEAT_1D), ("heat_2d", HEAT_2D)):
+        heat_highest[label] = high(HeatControlProblem, shape, "highest")
+        highest[label] = heat_highest[label].relative_residual_f64(heat_highest[label].solve(pol))
+    gates = {"wave_headline_high_polished": min(WAVE_HIGH_MAX_REL_RESIDUAL, HIGH_RESIDUAL_FACTOR * highest["wave_headline"]),
+             "wave_headline_high_unpolished": None,
+             "heat_1d_high_polished": HEAT_MAX_REL_RESIDUAL,
+             "heat_2d_high_polished": HIGH_RESIDUAL_FACTOR * highest["heat_2d"]}
+    for name, (rel, launches, first_solve_s) in runs.items():
+        ref = highest["_".join(name.split("_")[:2])]
+        print(json.dumps({"phase": "b3_main_path", "case": name, "dtype": "float32", "dst_precision": "high",
+                          "b3_launches": launches[0], "fused_launches": launches[1], "first_solve_s": first_solve_s,
+                          "relative_residual_f64": rel, "highest_polished_residual": ref,
+                          "ratio_to_highest_polished": rel / ref, "gate": gates[name]}), flush=True)
+        if gates[name] is not None and not rel <= gates[name]:
+            return f"{name}: residual {rel:.3e} > {gates[name]:.3e}", None
+
+    # 45. times: B3 at the headline beside its bound, its twin, the library
+    # composition and the FP32 cuBLAS DST; the polished solves 'high'
+    # against 'highest'
+    a = wave.rhs.reshape(-1, n1)
+    b_hi, b_lo = ws.hi.contiguous(), ws.lo.contiguous()
+    library_note = None
+    try:
+        lib_err = rel_err(torch, b3_library(torch, b3, a, b_hi, b_lo), b3.bf16x3_matmul_reference(a, ws.hi, ws.lo))
+        print(json.dumps({"phase": "b3_library_vs_twin", "rel_max_abs_err": lib_err, "gate": None}), flush=True)
+    except (TypeError, RuntimeError) as exc:
+        library_note = f"torch.mm(..., out_dtype=torch.float32) unavailable in torch {torch.__version__}: {exc}"[:300]
+    full = make_space(1, N_X, dtype=torch.float32, device="cuda")
+    batched = torch.stack([wave.rhs] * 8)
+    ab = batched.reshape(-1, n1)
+    wave_fns = {prec: high(WaveControlProblem, dict(N_x=N_X, N_t=N_T), prec).make_solver_fn(pol) for prec in ("high", "highest")}
+    timings = {
+        "b3_headline": lambda: b3.bf16x3_matmul(a, ws),
+        "b3_twin_headline": lambda: b3.bf16x3_matmul_reference(a, ws.hi, ws.lo),
+        "dst_fp32_cublas_headline": lambda: full.dst(wave.rhs),
+        "dst_bf16x3_headline": lambda: wave.space.dst(wave.rhs),
+        "b3_batched": lambda: b3.bf16x3_matmul(ab, ws),
+        "b3_heat_2d_axis": lambda: b3.bf16x3_matmul(gx, hs),
+        "dst_bf16x3_heat_2d": lambda: heat2.space.dst(heat2.rhs),
+        "wave_solve_polished_high": lambda: wave_fns["high"](wave.rhs),
+        "wave_solve_polished_highest": lambda: wave_fns["highest"](wave.rhs),
+    }
+    if library_note is None:
+        timings["b3_library_headline"] = lambda: b3_library(torch, b3, a, b_hi, b_lo)
+    for label, hp in (("heat_1d", heat1), ("heat_2d", heat2)):
+        timings[f"{label}_solve_polished_high"] = lambda f=hp.build_polished_solver(polish=1, use_pallas=True), b=hp.rhs: f(b)
+        hh = heat_highest[label]
+        timings[f"{label}_solve_polished_highest"] = lambda f=hh.build_polished_solver(polish=1, use_pallas=True), b=hh.rhs: f(b)
+    ms = {name: timed(torch, smi, flush, name, fn) for name, fn in timings.items()}
+    for name in ("wave_solve_polished_high", "wave_solve_polished_highest"):
+        med, lo, hi = wall_ms(torch, timings[name])
+        print(json.dumps({"timing": name, "clock": "host_wall", "median_ms": med, "min_ms": lo,
+                          "max_ms": hi, "runs": RUNS, "card": smi}), flush=True)
+
+    def bound(M, K, N):
+        # A read and C written once in float32, both B planes read once; three bf16 products
+        return roofline(4 * M * K + 2 * 2 * K * N + 4 * M * N, 3 * 2 * M * N * K, BF16_FLOPS_PER_S)
+
+    head = bound(*a.shape, ws.n)
+    entry = {
+        "name": "bf16x3_gemm_cuda",
+        "route": "cuda",
+        "source": "optimal_control_paradiag_torch/csrc/bf16x3_gemm.cu",
+        "replaces": "optimal_control_paradiag_tpu/fem/space.py:317",
+        "replaces_kind": "XLA's Precision.HIGH dot (P1Space.dst, the four-step plans), not a pl.pallas_call",
+        "launches": runs["wave_headline_high_polished"][1][0],
+        "max_abs_err": max_abs_err,
+        "ms": ms["b3_headline"],
+        "plain_ms": ms["b3_twin_headline"],
+        **head,
+        "library_ms": ms.get("b3_library_headline"),
+        "library_note": library_note,
+        "fp32_cublas_dst_ms": ms["dst_fp32_cublas_headline"],
+        "batched_ms": ms["b3_batched"],
+        "batched_bound_ms": bound(*ab.shape, ws.n)["bound_ms"],
+        "launches_2d": runs["heat_2d_high_polished"][1][0],
+        "ms_2d_axis": ms["b3_heat_2d_axis"],
+        "bound_ms_2d_axis": bound(*gx.shape, hs.n)["bound_ms"],
+    }
+    return None, entry
+
+
 def main() -> int:
     import torch
 
@@ -2032,6 +2254,7 @@ def main() -> int:
         reference_1d_default,
     )
     from optimal_control_paradiag_torch.cuda_build import load_library
+    from optimal_control_paradiag_torch.ops import bf16x3 as b3
     from optimal_control_paradiag_torch.ops.transforms import (
         time_irfft_conj_packed,
         time_rfft_conj_packed,
@@ -2081,15 +2304,15 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}), flush=True)
         return code
 
-    # 2. build both sources and the measurement variants, all at once
+    # 2. build the three sources and the measurement variants, all at once
     t0 = time.perf_counter()
     variants = {"woodbury_profile": start_variant(cw.KERNEL_SOURCE, "WOODBURY_PROFILE"),
                 "heat_profile": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PROFILE"),
                 "heat_profile_skip_b": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PROFILE", "HEAT_WOODBURY_SKIP_B"),
                 "heat_planes": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PLANES")}
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = list(zip((cw.KERNEL_SOURCE, ch.KERNEL_SOURCE),
-                          pool.map(load_library, (cw.KERNEL_SOURCE, ch.KERNEL_SOURCE))))
+    sources = (cw.KERNEL_SOURCE, ch.KERNEL_SOURCE, b3.KERNEL_SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        builds = list(zip(sources, pool.map(load_library, sources)))
     for source, built in builds:
         print(json.dumps({"phase": "build", "source": source, "nvcc_s": built.seconds,
                           "load_s": time.perf_counter() - t0}), flush=True)
@@ -2505,8 +2728,11 @@ def main() -> int:
     err = sharded_phases(torch, smi, flush)
     if err:
         return fail(err)
+    err, b3_entry = bf16x3_phases(torch, smi, flush, rel_pol)
+    if err:
+        return fail(err)
 
-    print(json.dumps({"kernels": [b1, b2]}), flush=True)
+    print(json.dumps({"kernels": [b1, b2, b3_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -29,9 +29,13 @@ class ProblemConfig:
       mass: 'consistent' P1 mass or 'lumped' (row-sum) mass.
       dtype: real torch dtype of the system (float32 or float64); complex
         work uses the matching complex dtype.
-      dst_precision: 'highest' (full float32 matmul DST) or 'high'. In the
-        JAX package 'high' is the bf16x3 matmul (valid with polish); torch's
-        'high' is TF32, a different algorithm, so the port raises for it.
+      dst_precision: 'highest' (full float32 matmul DST) or 'high', the
+        bf16x3 matmul of the JAX package's ``Precision.HIGH``
+        (``ops/bf16x3.py``: a hand-written kernel on the card, its plain
+        twin on the CPU, where the JAX package's XLA backend ignores HIGH
+        and computes full float32). Valid only with ``polish >= 1``: alone
+        its rounding wrecks the direct solve. Float64 'high' is the float64
+        matmul; 'fft' and 'mxu4' ignore it. Never TF32.
       dst_method: sine-transform algorithm, 'auto' | 'matmul' | 'fft' |
         'mxu4' ('auto': the matmul up to the 64 MB matrix budget, then the
         FFT, the JAX package's rule).
@@ -108,8 +112,6 @@ class SolverConfig:
     A triangle mesh's ``method='woodbury'`` is the direct solve over its
     generalized eigenbasis (``paradiag/eigbasis.py``); the sharded solves
     of both families take the same configuration (``parallel/solve.py``).
-    What the port lacks (``dst_precision='high'``) raises
-    ``NotImplementedError`` naming its ROADMAP item.
     """
 
     method: str = "gmres"

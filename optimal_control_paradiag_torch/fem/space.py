@@ -11,9 +11,11 @@ h^2/12 {centre 6; E, W, N, S, NE, SW 1}; lumped mass h^2 I.
 
 The sine transform (``dst_method``) is a dense matmul with the symmetric
 DST-I matrix, the odd-extension FFT identity, or its four-step matmul
-factorization, each in strict float32 (or float64): the direct solve does
-not survive a reduced-precision transform (``config.py`` of the JAX package
-records a relative residual of 0.129 with bf16x3 on the DST alone), so the
+factorization, each in strict float32 (or float64). The matmul alone also
+runs in bf16x3 (``dst_precision='high'``, ``ops/bf16x3.py``), the JAX
+package's ``Precision.HIGH``: the direct solve does not survive it without
+one physical-space polish step, which measures the defect with the
+stencil. TF32 is a different algorithm that the port never runs: the
 solver builders call :func:`require_full_fp32_matmul` before they build
 anything.
 """
@@ -27,6 +29,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from optimal_control_paradiag_torch.ops.bf16x3 import SplitMatrix, bf16x3_matmul, split_matrix
 from optimal_control_paradiag_torch.utils.constants import host_const, np_dtype, resolve_device, to_device
 
 # Dense DST matrix budget of dst_method='auto' (the JAX package's choice).
@@ -97,12 +100,8 @@ class P1Space:
     dst_precision: str = "highest"
 
     def __post_init__(self):
-        if self.dst_precision != "highest":
-            raise NotImplementedError(
-                "dst_precision='high' is not ported yet (ROADMAP Queue A, deferred "
-                "transforms): its meaning is the bf16x3 matmul, and torch's 'high' "
-                "float32 matmul precision is TF32, a different algorithm"
-            )
+        if self.dst_precision not in ("highest", "high"):
+            raise ValueError(f"dst_precision must be 'highest' or 'high', got {self.dst_precision!r}")
 
     @property
     def h(self) -> float:
@@ -217,6 +216,26 @@ class P1Space:
         V = np.sin(np.pi * np.outer(i, i) / self.N_x)
         return to_device(V, self.dtype, self.device)
 
+    @functools.cached_property
+    def dst_matrix_split(self) -> SplitMatrix:
+        """The float32 DST-I matrix split to bf16 hi and lo once, on the
+        space's device: the constant operand of the bf16x3 sine transform
+        (``dst_precision='high'``)."""
+        return split_matrix(self.dst_matrix)
+
+    @property
+    def _bf16x3(self) -> bool:
+        """The matmul sine transform runs in bf16x3: ``dst_precision='high'``
+        in float32. In float64 'high' is the float64 matmul, as the JAX
+        package computes it on the CPU."""
+        return self.dst_precision == "high" and self.dtype == torch.float32
+
+    def _dst_bf16x3_lastaxis(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ V`` over the last axis in bf16x3, the leading axes folded
+        into the kernel's rows."""
+        out = bf16x3_matmul(x.reshape(-1, self.n1d).contiguous(), self.dst_matrix_split)
+        return out.reshape(x.shape)
+
     @property
     def _use_fft_dst(self) -> bool:
         """``dst_method='fft'``, or ``'auto'`` past the dense matrix budget:
@@ -264,16 +283,21 @@ class P1Space:
         """Forward sine transform over the (flat) space axis, by
         ``dst_method``: 'matmul' (and 'auto' up to the 64 MB budget), the
         dense DST-I matrix in full precision (complex inputs: real and
-        imaginary parts apart); 'fft', the odd-extension identity on
-        ``torch.fft``; 'mxu4', the same identity with the length-2N_x FFT
-        factored into two radix-~sqrt(2 N_x) real matmul stages
-        (``ops.transforms.dst1_mm4``), O(N_x^1.5) flops per row."""
+        imaginary parts apart), and in bf16x3 where ``dst_precision='high'``
+        in float32 (2D: the y axis transposed to the last place, the same
+        product, and back, since V is symmetric); 'fft', the odd-extension
+        identity on ``torch.fft``; 'mxu4', the same identity with the
+        length-2N_x FFT factored into two radix-~sqrt(2 N_x) real matmul
+        stages (``ops.transforms.dst1_mm4``), O(N_x^1.5) flops per row.
+        'fft' and 'mxu4' ignore ``dst_precision``, as in the JAX package."""
         if self.dst_method == "mxu4":
             return self._dst_mm4_lastaxis(x) if self.dim == 1 else self._dst_2d(x, self._dst_mm4_lastaxis)
         if self._use_fft_dst:
             return self._dst_fft_lastaxis(x) if self.dim == 1 else self._dst_2d(x, self._dst_fft_lastaxis)
         if x.is_complex():
             return torch.complex(self.dst(x.real), self.dst(x.imag))
+        if self._bf16x3:
+            return self._dst_bf16x3_lastaxis(x) if self.dim == 1 else self._dst_2d(x, self._dst_bf16x3_lastaxis)
         V = self.dst_matrix
         if self.dim == 1:
             return torch.matmul(x, V)

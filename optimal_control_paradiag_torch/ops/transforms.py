@@ -20,12 +20,15 @@ Conventions of the half-spectrum transforms (c in {u, p}):
   inverse:  t_c  = irfft(conj(xi_c), n=N, axis=-2) * N
 
 The matrices are built in float64 numpy, cast once to the working dtype and
-copied to the device once. Every matmul runs in full float32 (or float64):
-the plans refuse TF32 as the solver builders do. The JAX package's
-``precision=`` argument (its bf16x3 'HIGH' matmul) has no torch counterpart:
-``None`` (full precision) is accepted and anything else raises. On the card
-the FFTs are cuFFT and the matmuls cuBLAS: library work, as XLA lowered them
-to library calls for the JAX package.
+copied to the device once. Every matmul runs in full float32 (or float64),
+except the plans' radix products with ``precision='high'`` in float32: the
+JAX package's ``Precision.HIGH``, the bf16x3 product of ``ops/bf16x3.py``
+(its kernel on the card). The port takes the precision as a string
+(``None`` or ``'highest'``: full precision; ``'high'``) where the JAX
+package takes a ``jax.lax.Precision``; anything else raises ``ValueError``.
+The plans refuse TF32 as the solver builders do. On the card the FFTs are
+cuFFT and the full-precision matmuls cuBLAS: library work, as XLA lowered
+them to library calls for the JAX package.
 """
 
 from __future__ import annotations
@@ -36,18 +39,38 @@ import numpy as np
 import torch
 
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
+from optimal_control_paradiag_torch.ops.bf16x3 import bf16x3_matmul, split_matrix
 from optimal_control_paradiag_torch.utils.constants import resolve_device, to_device
 
 
-def _full_precision(precision) -> None:
-    """Accept ``precision=None`` (full float32/float64 matmuls) only."""
-    if precision is not None:
-        raise NotImplementedError(
-            f"precision={precision!r}: the JAX package's reduced-precision (bf16x3) "
-            "matmul has no torch counterpart (torch's 'high' is TF32, a different "
-            "algorithm); the port's transforms run in full precision (precision=None)"
-        )
+def _radix_splits(plan, precision, rdtype, names) -> dict:
+    """Check a plan's ``precision`` (``None``, ``'highest'`` or ``'high'``)
+    and return the bf16x3 splits of the transposed radix matrices ``names``
+    where the plan's products run in bf16x3 (``'high'`` in float32), else
+    an empty dict."""
+    if precision not in (None, "highest", "high"):
+        raise ValueError(f"precision must be None, 'highest' or 'high', got {precision!r}")
     require_full_fp32_matmul()
+    if precision != "high" or rdtype != torch.float32:
+        return {}
+    return {name: split_matrix(getattr(plan, name).T.contiguous()) for name in names}
+
+
+def _radix(p, eq: str, name: str, x: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, M, x)`` for the plan's radix matrix ``M =
+    p.<name>``, ``eq`` of the form ``'XY,...<x>->...<out>'`` (Y contracted,
+    X placed where ``out`` says). In bf16x3 the contracted axis is moved
+    last and the product taken as ``x @ M^T`` on the kernel's rows."""
+    split = p.splits.get(name)
+    if split is None:
+        return torch.einsum(eq, getattr(p, name), x)
+    lhs, rhs = eq.split("->")
+    m_idx, x_idx = lhs.split(",")
+    x_idx, out = x_idx[3:], rhs[3:]  # past the '...'
+    assert x_idx.replace(m_idx[1], "") == out.replace(m_idx[0], ""), eq
+    y = x.movedim(x_idx.index(m_idx[1]) - len(x_idx), -1).contiguous()
+    z = bf16x3_matmul(y.reshape(-1, y.shape[-1]), split).reshape(y.shape[:-1] + (split.n,))
+    return z.movedim(-1, out.index(m_idx[0]) - len(out))
 
 
 def dft_matrices(N: int, dtype, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,10 +147,10 @@ def factor_pair(N: int) -> Tuple[int, int]:
 class FourStepPlan:
     """The matrices of the four-step time transforms for one (N, dtype) on
     ``device``. Build once at setup; raises ``ValueError`` for a prime N
-    (no nontrivial radix split)."""
+    (no nontrivial radix split). ``precision``: the radix products' (module
+    note); with ``'high'`` in float32 their matrices are split once here."""
 
     def __init__(self, N: int, rdtype, precision=None, device="cuda"):
-        _full_precision(precision)
         a, b = factor_pair(N)
         if a < 2:
             raise ValueError(f"N={N} has no nontrivial factorization; use the fft path")
@@ -153,6 +176,8 @@ class FourStepPlan:
         # 1/N and the inverse's *N cancel by construction.
         self.Cb1 = c(np.cos(ang_b))
         self.Sb1 = c(np.sin(ang_b))
+        self.precision = precision
+        self.splits = _radix_splits(self, precision, rdtype, ("Cb", "Sb", "Ca", "Sa", "Cb1", "Sb1"))
 
 
 def time_rfft_conj_mm4(x: torch.Tensor, p: FourStepPlan) -> torch.Tensor:
@@ -160,13 +185,13 @@ def time_rfft_conj_mm4(x: torch.Tensor, p: FourStepPlan) -> torch.Tensor:
     four-step factorization (module note). Returns ``(..., K, n)`` complex."""
     lead, (N, n) = x.shape[:-2], x.shape[-2:]
     x4 = x.reshape(lead + (p.b, p.a, n))  # [t2, t1]
-    yre = torch.einsum("KT,...Tan->...Kan", p.Cb, x4)
-    yim = torch.einsum("KT,...Tan->...Kan", p.Sb, x4)
+    yre = _radix(p, "KT,...Tan->...Kan", "Cb", x4)
+    yim = _radix(p, "KT,...Tan->...Kan", "Sb", x4)
     wre, wim = p.Wre[:, :, None], p.Wim[:, :, None]
     zre = yre * wre - yim * wim
     zim = yre * wim + yim * wre
-    Xre = torch.einsum("AT,...KTn->...AKn", p.Ca, zre) - torch.einsum("AT,...KTn->...AKn", p.Sa, zim)
-    Xim = torch.einsum("AT,...KTn->...AKn", p.Ca, zim) + torch.einsum("AT,...KTn->...AKn", p.Sa, zre)
+    Xre = _radix(p, "AT,...KTn->...AKn", "Ca", zre) - _radix(p, "AT,...KTn->...AKn", "Sa", zim)
+    Xim = _radix(p, "AT,...KTn->...AKn", "Ca", zim) + _radix(p, "AT,...KTn->...AKn", "Sa", zre)
     out = lambda X: X.reshape(lead + (N, n))[..., : p.K, :]
     return torch.complex(out(Xre), out(Xim))
 
@@ -185,15 +210,15 @@ def time_irfft_conj_mm4(xi: torch.Tensor, p: FourStepPlan) -> torch.Tensor:
     Z4re = Zre.reshape(lead + (p.a, p.b, n))  # [k1, k2]
     Z4im = Zim.reshape(lead + (p.a, p.b, n))
     # stage 1: radix-a DFT over k1 (output index t1)
-    are = torch.einsum("TA,...AKn->...TKn", p.Ca, Z4re) - torch.einsum("TA,...AKn->...TKn", p.Sa, Z4im)
-    aim = torch.einsum("TA,...AKn->...TKn", p.Ca, Z4im) + torch.einsum("TA,...AKn->...TKn", p.Sa, Z4re)
+    are = _radix(p, "TA,...AKn->...TKn", "Ca", Z4re) - _radix(p, "TA,...AKn->...TKn", "Sa", Z4im)
+    aim = _radix(p, "TA,...AKn->...TKn", "Ca", Z4im) + _radix(p, "TA,...AKn->...TKn", "Sa", Z4re)
     # twiddle W[k2, t1] applied as [t1, k2]
     wre = p.Wre.T[:, :, None]
     wim = p.Wim.T[:, :, None]
     bre = are * wre - aim * wim
     bim = are * wim + aim * wre
     # stage 2: radix-b DFT over k2, REAL part only (output index t2)
-    out = torch.einsum("TK,...tKn->...Ttn", p.Cb1, bre) - torch.einsum("TK,...tKn->...Ttn", p.Sb1, bim)
+    out = _radix(p, "TK,...tKn->...Ttn", "Cb1", bre) - _radix(p, "TK,...tKn->...Ttn", "Sb1", bim)
     return out.reshape(lead + (N, n))
 
 
@@ -211,10 +236,9 @@ def time_irfft_conj_mm4(xi: torch.Tensor, p: FourStepPlan) -> torch.Tensor:
 
 class DstFourStepPlan:
     """The matrices of the four-step DST-I for one (N_x, dtype) on
-    ``device``."""
+    ``device``; ``precision`` as :class:`FourStepPlan`'s."""
 
     def __init__(self, N_x: int, rdtype, precision=None, device="cuda"):
-        _full_precision(precision)
         N = 2 * N_x
         a, b = factor_pair(N)
         if a < 2:
@@ -233,6 +257,8 @@ class DstFourStepPlan:
         ang_a = 2.0 * np.pi * np.outer(ta, ta) / a
         self.Ca = c(np.cos(ang_a))
         self.Sa = c(np.sin(ang_a))
+        self.precision = precision
+        self.splits = _radix_splits(self, precision, rdtype, ("Cb", "Sb", "Ca", "Sa"))
 
 
 def dst1_mm4(x: torch.Tensor, p: DstFourStepPlan) -> torch.Tensor:
@@ -244,14 +270,14 @@ def dst1_mm4(x: torch.Tensor, p: DstFourStepPlan) -> torch.Tensor:
     ext = torch.cat([z, x, z, -torch.flip(x, dims=(-1,))], dim=-1)
     e4 = ext.reshape(x.shape[:-1] + (p.b, p.a))  # [t2, t1]
     # stage 1: radix-b DFT over t2, sign - (numpy fft): (Cb - i Sb) e
-    yre = torch.einsum("KT,...Ta->...Ka", p.Cb, e4)
-    yim = -torch.einsum("KT,...Ta->...Ka", p.Sb, e4)
+    yre = _radix(p, "KT,...Ta->...Ka", "Cb", e4)
+    yim = -_radix(p, "KT,...Ta->...Ka", "Sb", e4)
     # twiddle e^{-2 pi i k2 t1 / N} = Wre - i Wim
     zre = yre * p.Wre + yim * p.Wim
     zim = yim * p.Wre - yre * p.Wim
     # stage 2: radix-a DFT over t1, imaginary part only:
     # Im((Ca - i Sa)(zre + i zim)) = Ca zim - Sa zre
-    Xim = torch.einsum("AT,...KT->...AK", p.Ca, zim) - torch.einsum("AT,...KT->...AK", p.Sa, zre)
+    Xim = _radix(p, "AT,...KT->...AK", "Ca", zim) - _radix(p, "AT,...KT->...AK", "Sa", zre)
     X = Xim.reshape(x.shape[:-1] + (p.N,))  # a copy where the einsum left [A, K] strided
     return -0.5 * X[..., 1 : n + 1]
 

@@ -134,12 +134,6 @@ def test_float32_stencils_stay_float32():
     assert op.matvec(torch.ones(2, 4, ts.n, dtype=torch.float32)).dtype == torch.float32
 
 
-@pytest.mark.parametrize("kw", [dict(dst_precision="high")], ids=["high"])
-def test_unported_transform_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_make_space(dim=1, N_x=8, device="cpu", **kw)
-
-
 def test_make_space_defaults_to_the_card():
     """Without a device the space goes to the card, and without a card it
     raises: the port never falls back to the CPU on its own."""

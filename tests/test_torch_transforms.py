@@ -126,9 +126,12 @@ def test_fourstep_dst_matches_jax(N_x):
 
 
 def test_reduced_precision_plans_are_refused():
+    """``precision='high'`` (bf16x3, tests/test_torch_bf16x3.py) builds; an
+    unknown precision raises, and so does TF32."""
     for plan in (t_tr.FourStepPlan, t_tr.DstFourStepPlan):
-        with pytest.raises(NotImplementedError, match="precision"):
-            plan(16, torch.float32, precision="high", device="cpu")
+        assert plan(16, torch.float32, precision="high", device="cpu").precision == "high"
+        with pytest.raises(ValueError, match="precision"):
+            plan(16, torch.float32, precision="tf32", device="cpu")
     old = torch.get_float32_matmul_precision()
     try:
         torch.set_float32_matmul_precision("high")
