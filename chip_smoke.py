@@ -7,13 +7,13 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``, and no network. Phases, each of which fails the run:
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
-2. build the three kernel sources at once, each by its own nvcc: the fused
+2. build the four kernel sources at once, each by its own nvcc: the fused
    Woodbury kernels of ``csrc/woodbury.cu`` (slab and streaming), those
-   of ``csrc/heat_woodbury.cu`` (slab and streaming) and the bf16x3 GEMM
-   of ``csrc/bf16x3_gemm.cu`` (phase 42), beside the variant
+   of ``csrc/heat_woodbury.cu`` (slab and streaming) and the two routes
+   of the bf16x3 GEMM (phase 42), beside the variant
    builds used for measurement only (``-DWOODBURY_PROFILE``,
    ``-DHEAT_WOODBURY_PROFILE``, the same with ``-DHEAT_WOODBURY_SKIP_B``,
-   ``-DHEAT_WOODBURY_PLANES``); print each kernel's ptxas registers and
+   ``-DHEAT_WOODBURY_PLANES``, ``-DBF16X3_PROFILE``); print each kernel's ptxas registers and
    spills;
 3. hold both kernels against their plain PyTorch twin on the card, at the
    main path's shapes (K = 513, n = 2047), float32 and float64, on the
@@ -184,30 +184,51 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     (the direct solves: 6 all_to_all and 3 all_reduce, no all_gather) and
     its device ms beside the unsharded solve's.
 
-42. (in phase 2) the bf16x3 GEMM B3 built with the other sources, its
-    ptxas registers and spills printed;
+42. (in phase 2) the bf16x3 GEMM B3 built with the other sources: both
+    routes, ``csrc/bf16x3_gemm.cu`` ('mma', PR 12's mma.sync kernel) and
+    ``csrc/bf16x3_wgmma.cu`` ('wgmma': the split pass and the TMA-fed,
+    warp-specialised wgmma GEMM), each kernel's ptxas registers, spills and
+    warnings printed, beside the GEMM's profile build
+    (``-DBF16X3_PROFILE``); and the wgmma GEMM's SASS (``cuobjdump
+    -sass``): it fails without HGMMA (wgmma) and UTMALDG (TMA) in it, and
+    fails, saying why, where the SASS cannot be read;
 43. B3 against its plain twin on the card in float32 (relative max-abs
-    <= 1e-5) and against the float64 DST (<= 2e-5): the headline DST
+    <= 1e-5) and against the float64 product (<= 2e-5): the headline DST
     (2048 x 2047 x 2047) on the main path's right-hand side and on a
-    seeded random one, the batched DST (M = 16384), both axes of the heat
-    2D lumped DST (255), one row, and odd shapes (1 x 1 x 1, 17 x 33 x 9);
+    seeded random one, the batched DST (M = 16384), both on each route,
+    both axes of the heat 2D lumped DST (255; the x axis on each route),
+    one row, M = 129, odd shapes (1 x 1 x 1, 17 x 33 x 9; on 'wgmma' K =
+    65 and N = 1), and an all-positive 512 x 2047 x 512 product on each
+    route (the drift case); the split pass bitwise against ``split_bf16``;
+    and the crossover table of the two routes (M = 2048, N = K in {32, 64,
+    96, 128, 255, 512, 1023, 2047}, and the heat 2D axis shape, each timed
+    in turns and held to the twin) beside the route the shape rule
+    (``bf16x3_route``) picks;
 44. ``dst_precision='high'`` through the entry points, the JAX bench's
     stage_woodbury_polished: ``WaveControlProblem(ProblemConfig(N_x=2048,
     N_t=1024, dtype=float32, dst_precision='high')).solve(SolverConfig(
-    method='woodbury', use_pallas=True, polish=1))`` with the counts of B3
-    and B1 set to 0 just before and read just after (4 and 2), float64
-    oracle <= 5e-4 and <= 1.25 x the 'highest' polished solve's (phase
-    11); the same without polish (2 and 1, printed, ungated); the heat 1D
-    headline (4 and 2 B2, <= 2.24e-2) and heat 2D lumped (8 and 2, <= 1.25
-    x its 'highest' polished residual);
-45. times: B3 at the headline beside its bound (bf16 tensor-core
-    operations), its twin, the same function as the split and three
-    cuBLAS bf16 products (``torch.mm(..., out_dtype=torch.float32)``,
-    null with the reason where torch lacks it), the FP32 cuBLAS DST, B3
-    batched and on a 2D axis, and the polished wave and heat solves with
-    'high' against 'highest'.
+    method='woodbury', use_pallas=True, polish=1))`` with the counts of B3,
+    of its 'wgmma' route, of the split pass and of B1 set to 0 just before
+    and read just after (4, 4, 4 and 2), float64 oracle <= 5e-4 and <= 1.25 x the 'highest'
+    polished solve's (phase 11); the same without polish (2, 2, 2 and 1,
+    printed, ungated); the heat 1D headline (4, 4, 4 and 2 B2, <= 2.24e-2)
+    and heat 2D lumped (8 on the axis shape's route, and 2; <= 1.25 x its
+    'highest' polished residual);
+45. times: B3 at the headline, batched and on the heat 2D axis, the
+    'wgmma' route and PR 12's 'mma' kernel in turns ('mma', 'wgmma',
+    'wgmma', 'mma'), beside the bound (bf16 tensor-core operations); the
+    split pass alone and its plain twin; the profile build's per-block
+    split of the time (``b3_profile``); the twin,
+    the same function as the split and three cuBLAS bf16 products
+    (``torch.mm(..., out_dtype=torch.float32)``, null with the reason where
+    torch lacks it), the FP32 cuBLAS DST, B3 on a 2D axis, the polished
+    wave and heat solves with 'high' against 'highest'; the wrapper's host
+    cost per call (each route and one FP32 ``torch.mm``); and the polished
+    wave solves' host wall, 'high' and 'highest' interleaved, 30 each.
 
-``python3 chip_smoke.py --sharded`` runs phase 1 and phases 37-41 alone.
+``python3 chip_smoke.py --sharded`` runs phase 1 and phases 37-41 alone;
+``python3 chip_smoke.py --bf16x3`` runs phases 1, 2, 42 and 43-45 (with
+phase 11's 'highest' polished wave solve for their gate).
 ``python3 chip_smoke.py --cards N`` (a machine with N cards) runs the
 sharded CLI (``run.py --mesh``) under ``torch.distributed.run``, one NCCL
 rank per card, on every grid of N ranks and on 1x1, for each route at
@@ -403,7 +424,7 @@ def print_ptxas(log: str) -> None:
                 name = d.group(1)
             else:
                 name = f"{d.group(1)}<{d.group(2)}{',' + d.group(3) if d.group(3) else ''}>"
-        elif "registers" in line or "spill" in line:
+        elif "registers" in line or "spill" in line or "warning" in line or "Performance Loss" in line:
             print(f"ptxas: {name}: {line.strip()}", flush=True)
 
 
@@ -2069,10 +2090,43 @@ def b3_library(torch, b3, a, b_hi, b_lo):
     return (mm(a_hi, b_lo) + mm(a_lo, b_hi)) + mm(a_hi, b_hi)
 
 
-def bf16x3_phases(torch, smi, flush, wave_highest_polished: float):
+def b3_sass(path: str) -> dict:
+    """Counts of HGMMA (wgmma), UTMALDG (a TMA load), SYNCS (mbarrier) and
+    USETMAXREG (setmaxnreg) in the SASS of ``bf16x3_wgmma_kernel`` in the
+    library at ``path`` (``cuobjdump -sass``); ``checked`` False, with the
+    reason, where the tool or the kernel is missing."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {"checked": False, "reason": "cuobjdump not found"}
+    proc = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        return {"checked": False, "reason": f"cuobjdump failed: {proc.stderr.strip()[:300]}"}
+    functions, name = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            functions[name] = []
+        elif name is not None:
+            functions[name].append(line)
+    kernel = next((f for f in functions if "bf16x3_wgmma_kernel" in f), None)
+    if kernel is None:
+        return {"checked": False, "reason": f"no bf16x3_wgmma_kernel among {sorted(functions)}"}
+    text = "\n".join(functions[kernel])
+    return {"checked": True, "function": kernel,
+            "counts": {op: len(re.findall(r"\b" + op + r"\b", text)) for op in ("HGMMA", "UTMALDG", "SYNCS", "USETMAXREG")}}
+
+
+def bf16x3_phases(torch, smi, flush, wave_highest_polished: float, variants, sass: dict):
     """Phases 43-45 (module docstring). ``wave_highest_polished``: phase
-    11's residual of the 'highest' polished wave headline. Returns (an error
-    message or None, B3's entry of the kernels line)."""
+    11's residual of the 'highest' polished wave headline; ``sass``: phase
+    42's reading of the wgmma GEMM's SASS; ``variants``:
+    the ``start_variant`` builds, ``b3_profile`` (``-DBF16X3_PROFILE``)
+    among them. Returns (an error message or None, the kernels line's
+    entries of B3's GEMM and of its split pass)."""
     import numpy as np
 
     from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, SolverConfig, WaveControlProblem
@@ -2084,72 +2138,122 @@ def bf16x3_phases(torch, smi, flush, wave_highest_polished: float):
     def high(cls, shape, prec="high"):
         return cls(ProblemConfig(**shape, dtype=torch.float32, dst_precision=prec), device="cuda")
 
-    # 43. B3 against its twin on the card, at the main path's shapes
+    # 43. B3 against its twin on the card, both routes, at the main path's
+    # shapes, ragged shapes and an all-positive sum (the drift case)
     wave, heat1, heat2 = high(WaveControlProblem, dict(N_x=N_X, N_t=N_T)), high(HeatControlProblem, HEAT_1D), \
         high(HeatControlProblem, HEAT_2D)
     rng = np.random.default_rng(12)
     rand = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+    positive = lambda *shape: torch.from_numpy(rng.uniform(0.0, 1.0, shape).astype(np.float32)).cuda()
 
     def sine64(N_x):
         i = np.arange(1, N_x)
         return torch.from_numpy(np.sin(np.pi * np.outer(i, i) / N_x)).cuda()
 
     ws, hs = wave.space.dst_matrix_split, heat2.space.dst_matrix_split
+    ws_mma = b3.split_matrix(wave.space.dst_matrix, route="mma")  # PR 12's kernel at the headline
+    hs_mma = b3.split_matrix(heat2.space.dst_matrix, route="mma")  # and on the heat 2D axis
     n1, n2 = wave.space.n1d, heat2.space.n1d
     Vw, Vh = sine64(N_X), sine64(HEAT_2D["N_x"])
     gx = heat2.rhs.reshape(-1, n2)
     gy = b3.bf16x3_matmul(gx, hs).reshape(-1, n2, n2).transpose(-1, -2).contiguous().reshape(-1, n2)
-    b_odd = {shape: rand(*shape) for shape in ((1, 1), (33, 9))}
-    cases = [
-        ("headline DST, main-path rhs", wave.rhs.reshape(-1, n1), ws, Vw),
-        ("headline DST, random", rand(2 * N_T, n1), ws, Vw),
-        ("batched DST (B = 8), random", rand(8 * 2 * N_T, n1), ws, Vw),
-        ("heat 2D x axis, main-path rhs", gx, hs, Vh),
-        ("heat 2D y axis, main-path rhs", gy, hs, Vh),
-        ("heat 2D axis, random", rand(2 * HEAT_2D["N_t"] * n2, n2), hs, Vh),
-        ("M = 1 DST, random", rand(1, n1), ws, Vw),
-        ("1 x 1 x 1", rand(1, 1), b3.split_matrix(b_odd[(1, 1)]), b_odd[(1, 1)].double()),
-        ("17 x 33 x 9", rand(17, 33), b3.split_matrix(b_odd[(33, 9)]), b_odd[(33, 9)].double()),
+    b_odd = {shape: rand(*shape) for shape in ((1, 1), (33, 9), (65, 200), (600, 1))}
+    b_pos, a_pos = positive(n1, 512), positive(512, n1)
+    a_batched = rand(8 * 2 * N_T, n1)
+    odd = lambda shape, route=None: (b3.split_matrix(b_odd[shape], route), b_odd[shape].double())
+    cases = [  # label, A, split B, float64 B, float64 gate
+        ("headline DST, main-path rhs", wave.rhs.reshape(-1, n1), ws, Vw, True),
+        ("headline DST, random", rand(2 * N_T, n1), ws, Vw, True),
+        ("batched DST (B = 8), random", a_batched, ws, Vw, True),
+        ("headline DST, main-path rhs, 'mma' route", wave.rhs.reshape(-1, n1), ws_mma, Vw, True),
+        ("batched DST (B = 8), random, 'mma' route", a_batched, ws_mma, Vw, True),
+        ("heat 2D x axis, main-path rhs", gx, hs, Vh, True),
+        ("heat 2D y axis, main-path rhs", gy, hs, Vh, True),
+        ("heat 2D axis, random", rand(2 * HEAT_2D["N_t"] * n2, n2), hs, Vh, True),
+        ("heat 2D x axis, main-path rhs, 'mma' route", gx, hs_mma, Vh, True),
+        ("M = 1 DST, random", rand(1, n1), ws, Vw, True),
+        ("M = 129 DST, random", rand(129, n1), ws, Vw, True),
+        ("1 x 1 x 1", rand(1, 1), *odd((1, 1)), False),
+        ("17 x 33 x 9", rand(17, 33), *odd((33, 9)), False),
+        ("300 x 65 x 200, 'wgmma' route", rand(300, 65), *odd((65, 200), "wgmma"), True),
+        ("200 x 600 x 1, 'wgmma' route", rand(200, 600), *odd((600, 1), "wgmma"), True),
+        ("drift: positive 512 x 2047 x 512, 'wgmma' route", a_pos, b3.split_matrix(b_pos, "wgmma"), b_pos.double(), True),
+        ("drift: positive 512 x 2047 x 512, 'mma' route", a_pos, b3.split_matrix(b_pos, "mma"), b_pos.double(), True),
     ]
     max_abs_err = None
-    for label, a, split, b64 in cases:
+    for label, a, split, b64, gate64 in cases:
         out = b3.bf16x3_matmul(a, split)
         torch.cuda.synchronize()
         twin = b3.bf16x3_matmul_reference(a, split.hi, split.lo)
         err = rel_err(torch, out, twin)
         err64 = rel_err(torch, out.double(), a.double() @ b64)
-        dst = "DST" in label or "axis" in label
-        print(json.dumps({"phase": "b3_vs_twin", "case": label, "M": a.shape[0], "K": a.shape[1], "N": split.n,
-                          "rel_max_abs_err": err, "tol": B3_TOL, "twin_vs_float64": rel_err(torch, twin.double(), a.double() @ b64),
-                          "kernel_vs_float64": err64, "float64_gate": B3_F64_TOL if dst else None}), flush=True)
+        print(json.dumps({"phase": "b3_vs_twin", "case": label, "route": split.route, "M": a.shape[0], "K": a.shape[1],
+                          "N": split.n, "rel_max_abs_err": err, "tol": B3_TOL,
+                          "twin_vs_float64": rel_err(torch, twin.double(), a.double() @ b64),
+                          "kernel_vs_float64": err64, "float64_gate": B3_F64_TOL if gate64 else None}), flush=True)
         if not err <= B3_TOL:
             return f"B3 disagrees with its twin ({label}): {err:.3e} > {B3_TOL:.0e}", None
-        if dst and not err64 <= B3_F64_TOL:
-            return f"B3 misses the float64 DST ({label}): {err64:.3e} > {B3_F64_TOL:.0e}", None
+        if gate64 and not err64 <= B3_F64_TOL:
+            return f"B3 misses the float64 product ({label}): {err64:.3e} > {B3_F64_TOL:.0e}", None
         if max_abs_err is None:
             max_abs_err = (out - twin).abs().max().item()
-    del gy, cases, b_odd
+    del gy, cases, b_odd, a_pos, b_pos
+    # the split pass, bitwise the twin's split
+    a = wave.rhs.reshape(-1, n1)
+    ld = b3.padded_width(n1)
+    planes = b3.split_rows(a, ld)
+    plain_planes = b3.split_rows_reference(a, ld)
+    bitwise = bool(torch.equal(planes, plain_planes))
+    split_err = (planes.float() - plain_planes.float()).abs().max().item()
+    del planes, plain_planes
+    print(json.dumps({"phase": "b3_split_bitwise", "M": a.shape[0], "K": n1, "ld": ld, "bitwise": bitwise,
+                      "max_abs_err": split_err}), flush=True)
+    if not bitwise:
+        return "the split pass differs from split_bf16", None
+    # the crossover table of the two routes (M = 2048, N = K), each timed in
+    # turns ('mma', 'wgmma', 'wgmma', 'mma'), both held to the twin
+    crossover = []
+    for m, k in ((2048, 32), (2048, 64), (2048, 96), (2048, 128), (2048, 255), (2048, 512), (2048, 1023),
+                 (2048, 2047), (2 * HEAT_2D["N_t"] * n2, n2)):
+        ak, bk = rand(m, k), rand(k, k)
+        splits = {route: b3.split_matrix(bk, route) for route in b3.ROUTES}
+        turns = {route: [] for route in b3.ROUTES}
+        for route in ("mma", "wgmma", "wgmma", "mma"):
+            turns[route].append(device_ms(torch, lambda s=splits[route]: b3.bf16x3_matmul(ak, s), flush)[0])
+        errs = {route: rel_err(torch, b3.bf16x3_matmul(ak, s), b3.bf16x3_matmul_reference(ak, s.hi, s.lo))
+                for route, s in splits.items()}
+        row = {"K": k, "M": m, "N": k, **{f"{r}_ms": statistics.mean(t) for r, t in turns.items()},
+               **{f"{r}_turns_ms": t for r, t in turns.items()}, **{f"{r}_rel_err": e for r, e in errs.items()},
+               "faster": min(b3.ROUTES, key=lambda r: statistics.mean(turns[r])), "rule": b3.bf16x3_route(k, k),
+               "card": smi}
+        print(json.dumps({"phase": "b3_crossover", **row}), flush=True)
+        if max(errs.values()) > B3_TOL:
+            return f"B3 disagrees with its twin in the crossover table at K = {k}: {errs}", None
+        crossover.append([m, k, row["mma_ms"], row["wgmma_ms"]])
 
     # 44. the 'high' polished paths through the entry points, each with the
-    # counts of B3 and the family's kernel set to 0 just before and read
-    # just after: B3 once per DST (per axis in 2D), two DSTs per base solve,
-    # and two base solves with polish = 1
+    # counts of B3's GEMM (all, and its 'wgmma' route), of the split pass and
+    # of the family's kernel set to 0 just before and read just after: B3
+    # once per DST (per axis in 2D), two DSTs per base solve, and two base
+    # solves with polish = 1
     pol = SolverConfig(method="woodbury", use_pallas=True, polish=1)
+    axis_wgmma = int(hs.route == "wgmma")
     runs = {}
     for name, prob, cfg, fused, want in (
-        ("wave_headline_high_polished", wave, pol, cw.fused_woodbury, (4, 2)),
-        ("wave_headline_high_unpolished", wave, SolverConfig(method="woodbury", use_pallas=True), cw.fused_woodbury, (2, 1)),
-        ("heat_1d_high_polished", heat1, pol, ch.fused_heat, (4, 2)),
-        ("heat_2d_high_polished", heat2, pol, ch.fused_heat, (8, 2)),
+        ("wave_headline_high_polished", wave, pol, cw.fused_woodbury, (4, 4, 4, 2)),
+        ("wave_headline_high_unpolished", wave, SolverConfig(method="woodbury", use_pallas=True), cw.fused_woodbury,
+         (2, 2, 2, 1)),
+        ("heat_1d_high_polished", heat1, pol, ch.fused_heat, (4, 4, 4, 2)),
+        ("heat_2d_high_polished", heat2, pol, ch.fused_heat, (8, 8 * axis_wgmma, 8 * axis_wgmma, 2)),
     ):
-        b3.bf16x3_matmul.launches = fused.launches = 0
+        b3.bf16x3_matmul.launches = b3.bf16x3_matmul.wgmma_launches = b3.split_rows.launches = fused.launches = 0
         t0 = time.perf_counter()
         sol = prob.solve(cfg)
         torch.cuda.synchronize()
         first_solve_s = time.perf_counter() - t0
-        launches = (b3.bf16x3_matmul.launches, fused.launches)
+        launches = (b3.bf16x3_matmul.launches, b3.bf16x3_matmul.wgmma_launches, b3.split_rows.launches, fused.launches)
         if launches != want:
-            return f"{name} launched (B3, fused) {launches}, not {want}", None
+            return f"{name} launched (B3, B3 'wgmma', split pass, fused) {launches}, not {want}", None
         if sol.u.shape != (prob.config.N_t, prob.space.n) or not (torch.isfinite(sol.u).all() and torch.isfinite(sol.p).all()):
             return f"{name}: the solution is not finite or has {tuple(sol.u.shape)}", None
         runs[name] = (prob.relative_residual_f64(sol), launches, first_solve_s)
@@ -2165,16 +2269,18 @@ def bf16x3_phases(torch, smi, flush, wave_highest_polished: float):
     for name, (rel, launches, first_solve_s) in runs.items():
         ref = highest["_".join(name.split("_")[:2])]
         print(json.dumps({"phase": "b3_main_path", "case": name, "dtype": "float32", "dst_precision": "high",
-                          "b3_launches": launches[0], "fused_launches": launches[1], "first_solve_s": first_solve_s,
-                          "relative_residual_f64": rel, "highest_polished_residual": ref,
-                          "ratio_to_highest_polished": rel / ref, "gate": gates[name]}), flush=True)
+                          "b3_launches": launches[0], "b3_wgmma_launches": launches[1], "split_launches": launches[2],
+                          "fused_launches": launches[3],
+                          "first_solve_s": first_solve_s, "relative_residual_f64": rel,
+                          "highest_polished_residual": ref, "ratio_to_highest_polished": rel / ref,
+                          "gate": gates[name]}), flush=True)
         if gates[name] is not None and not rel <= gates[name]:
             return f"{name}: residual {rel:.3e} > {gates[name]:.3e}", None
 
-    # 45. times: B3 at the headline beside its bound, its twin, the library
+    # 45. times: B3 at the headline and batched, the new route beside PR 12's
+    # kernel in turns, the split pass alone, the twin, the library
     # composition and the FP32 cuBLAS DST; the polished solves 'high'
     # against 'highest'
-    a = wave.rhs.reshape(-1, n1)
     b_hi, b_lo = ws.hi.contiguous(), ws.lo.contiguous()
     library_note = None
     try:
@@ -2185,14 +2291,21 @@ def bf16x3_phases(torch, smi, flush, wave_highest_polished: float):
     full = make_space(1, N_X, dtype=torch.float32, device="cuda")
     batched = torch.stack([wave.rhs] * 8)
     ab = batched.reshape(-1, n1)
+    ms = {}
+    for label, operand, new, previous in (("headline", a, ws, ws_mma), ("batched", ab, ws, ws_mma),
+                                          ("heat_2d_axis", gx, hs, hs_mma)):
+        for route, split in (("previous", previous), ("new", new), ("new", new), ("previous", previous)):
+            ms.setdefault(f"b3_{label}_{route}", []).append(
+                timed(torch, smi, flush, f"b3_{label}_{route}", lambda x=operand, s=split: b3.bf16x3_matmul(x, s),
+                      kernel_route=split.route))
+    ms = {name: statistics.mean(t) for name, t in ms.items()}
     wave_fns = {prec: high(WaveControlProblem, dict(N_x=N_X, N_t=N_T), prec).make_solver_fn(pol) for prec in ("high", "highest")}
     timings = {
-        "b3_headline": lambda: b3.bf16x3_matmul(a, ws),
+        "b3_split_headline": lambda: b3.split_rows(a, ld),
+        "b3_split_plain_headline": lambda: b3.split_rows_reference(a, ld),
         "b3_twin_headline": lambda: b3.bf16x3_matmul_reference(a, ws.hi, ws.lo),
         "dst_fp32_cublas_headline": lambda: full.dst(wave.rhs),
         "dst_bf16x3_headline": lambda: wave.space.dst(wave.rhs),
-        "b3_batched": lambda: b3.bf16x3_matmul(ab, ws),
-        "b3_heat_2d_axis": lambda: b3.bf16x3_matmul(gx, hs),
         "dst_bf16x3_heat_2d": lambda: heat2.space.dst(heat2.rhs),
         "wave_solve_polished_high": lambda: wave_fns["high"](wave.rhs),
         "wave_solve_polished_highest": lambda: wave_fns["highest"](wave.rhs),
@@ -2203,38 +2316,145 @@ def bf16x3_phases(torch, smi, flush, wave_highest_polished: float):
         timings[f"{label}_solve_polished_high"] = lambda f=hp.build_polished_solver(polish=1, use_pallas=True), b=hp.rhs: f(b)
         hh = heat_highest[label]
         timings[f"{label}_solve_polished_highest"] = lambda f=hh.build_polished_solver(polish=1, use_pallas=True), b=hh.rhs: f(b)
-    ms = {name: timed(torch, smi, flush, name, fn) for name, fn in timings.items()}
-    for name in ("wave_solve_polished_high", "wave_solve_polished_highest"):
-        med, lo, hi = wall_ms(torch, timings[name])
-        print(json.dumps({"timing": name, "clock": "host_wall", "median_ms": med, "min_ms": lo,
-                          "max_ms": hi, "runs": RUNS, "card": smi}), flush=True)
+    ms.update({name: timed(torch, smi, flush, name, fn) for name, fn in timings.items()})
+    # where a block's time goes (the profile build, clock64 sums of consumer
+    # warpgroup 0's thread 0, medians over blocks)
+    plib = finish_variant(variants["b3_profile"])
+    plib.bf16x3_profile_read.argtypes = [ctypes.c_void_p]
+    plib = b3._declare(plib, b3.WGMMA_SIGNATURES, "bf16x3_wgmma_error_string")
+    c = torch.empty(a.shape[0], ws.n, device="cuda")
+    for _ in range(3):
+        b3.wgmma_into(plib, a, ws, c)
+    torch.cuda.synchronize()
+    marks = np.zeros((1024, 8), dtype=np.int64)
+    if plib.bf16x3_profile_read(marks.ctypes.data) != 0:
+        return "reading the B3 profile failed", None
+    blocks = -(-a.shape[0] // 128) * -(-ws.n // 128)
+    marks = marks[:min(blocks, 1024)]
+    med = lambda x: float(np.median(x))
+    # blocks in the order each SM ran them: the gap between one block's last
+    # mark and the next block's first on the same SM
+    gaps = [b[4] - a_[6] for sm in np.unique(marks[:, 7])
+            for a_, b in itertools.pairwise(sorted(marks[marks[:, 7] == sm].tolist(), key=lambda r: r[4]))]
+    profile = {"blocks": int(marks.shape[0]), "stages": -(-n1 // 64), "sms_used": int(np.unique(marks[:, 7]).size),
+               **{f"{k}_cycles_median": med(marks[:, j])
+                  for j, k in enumerate(("mainloop", "consumer_waits_for_a_stage", "consumer_products_and_release"))},
+               "mainloop_ns_median": med(marks[:, 5] - marks[:, 4]),
+               "epilogue_ns_median": med(marks[:, 6] - marks[:, 5]),
+               "sm_clock_ghz_median": med(marks[:, 0] / np.maximum(marks[:, 5] - marks[:, 4], 1)),
+               "span_ns": int(marks[:, 6].max() - marks[:, 4].min()),
+               "second_block_gap_ns_median": med(gaps) if gaps else None,
+               "last_block_start_ns": int(marks[:, 4].max() - marks[:, 4].min())}
+    print(json.dumps({"phase": "b3_profile", **profile, "card": smi}), flush=True)
+    # the wrapper's host cost per call (enqueue, no synchronize), in turns:
+    # each route and one FP32 torch.mm
+    host = {"mma": [], "wgmma": [], "torch_mm_fp32": []}
+    fns = {"mma": lambda: b3.bf16x3_matmul(a, ws_mma), "wgmma": lambda: b3.bf16x3_matmul(a, ws),
+           "torch_mm_fp32": lambda: torch.mm(a, wave.space.dst_matrix)}
+    for _ in range(7):
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host[name].append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+    host_us = {name: min(v) for name, v in host.items()}
+    print(json.dumps({"phase": "b3_host_cost", "us_per_call_min": host_us, "us_per_call": host, "card": smi}), flush=True)
+    # the polished wave solves' host wall, 'high' and 'highest' interleaved
+    walls = {"high": [], "highest": []}
+    for prec in walls:
+        for _ in range(WARMUP):
+            wave_fns[prec](wave.rhs)
+    for i in range(30):
+        for prec in (("high", "highest") if i % 2 == 0 else ("highest", "high")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wave_fns[prec](wave.rhs)
+            torch.cuda.synchronize()
+            walls[prec].append((time.perf_counter() - t0) * 1e3)
+    for prec, w in walls.items():
+        print(json.dumps({"timing": f"wave_solve_polished_{prec}", "clock": "host_wall", "interleaved": True,
+                          "median_ms": statistics.median(w), "min_ms": min(w), "max_ms": max(w), "runs": len(w),
+                          "card": smi}), flush=True)
 
     def bound(M, K, N):
         # A read and C written once in float32, both B planes read once; three bf16 products
         return roofline(4 * M * K + 2 * 2 * K * N + 4 * M * N, 3 * 2 * M * N * K, BF16_FLOPS_PER_S)
 
     head = bound(*a.shape, ws.n)
+    axis = bound(*gx.shape, hs.n)
     entry = {
         "name": "bf16x3_gemm_cuda",
         "route": "cuda",
-        "source": "optimal_control_paradiag_torch/csrc/bf16x3_gemm.cu",
+        "source": "optimal_control_paradiag_torch/csrc/bf16x3_wgmma.cu",
+        "source_small_k": "optimal_control_paradiag_torch/csrc/bf16x3_gemm.cu",
         "replaces": "optimal_control_paradiag_tpu/fem/space.py:317",
         "replaces_kind": "XLA's Precision.HIGH dot (P1Space.dst, the four-step plans), not a pl.pallas_call",
         "launches": runs["wave_headline_high_polished"][1][0],
+        "wgmma_launches": runs["wave_headline_high_polished"][1][1],
+        "split_launches": runs["wave_headline_high_polished"][1][2],
+        "kernel_route": ws.route,
         "max_abs_err": max_abs_err,
-        "ms": ms["b3_headline"],
+        "ms": ms["b3_headline_new"],
+        "previous_ms": ms["b3_headline_previous"],
+        "split_ms": ms["b3_split_headline"],
         "plain_ms": ms["b3_twin_headline"],
         **head,
         "library_ms": ms.get("b3_library_headline"),
         "library_note": library_note,
         "fp32_cublas_dst_ms": ms["dst_fp32_cublas_headline"],
-        "batched_ms": ms["b3_batched"],
+        "batched_ms": ms["b3_batched_new"],
+        "batched_previous_ms": ms["b3_batched_previous"],
         "batched_bound_ms": bound(*ab.shape, ws.n)["bound_ms"],
         "launches_2d": runs["heat_2d_high_polished"][1][0],
-        "ms_2d_axis": ms["b3_heat_2d_axis"],
-        "bound_ms_2d_axis": bound(*gx.shape, hs.n)["bound_ms"],
+        "kernel_route_2d_axis": hs.route,
+        "ms_2d_axis": ms["b3_heat_2d_axis_new"],
+        "previous_ms_2d_axis": ms["b3_heat_2d_axis_previous"],
+        "bound_ms_2d_axis": axis["bound_ms"],
+        "bound_by_2d_axis": axis["bound_by"],
+        "crossover_m_k_mma_wgmma_ms": crossover,
+        "host_us_per_call": host_us,
+        "profile": profile,
+        "sass": sass,
     }
-    return None, entry
+    split = {
+        "name": "bf16x3_split_cuda",
+        "route": "cuda",
+        "source": "optimal_control_paradiag_torch/csrc/bf16x3_wgmma.cu",
+        "replaces": "optimal_control_paradiag_tpu/fem/space.py:317",
+        "replaces_kind": "the operand split of XLA's Precision.HIGH dot, not a pl.pallas_call",
+        "launches": runs["wave_headline_high_polished"][1][2],
+        "max_abs_err": split_err,
+        "ms": ms["b3_split_headline"],
+        "plain_ms": ms["b3_split_plain_headline"],
+        # A read once in float32, both planes written once; the split's few
+        # float32 operations per element are far below either rate
+        **roofline(4 * a.numel() + 2 * 2 * a.shape[0] * ld, 3 * a.numel()),
+        "library_ms": None,
+    }
+    return None, [entry, split]
+
+
+def bf16x3_alone(torch, smi, kind, variants, sass) -> int:
+    """``--bf16x3``: phases 43-45 after the builds, with phase 11's
+    'highest' polished wave headline solved here for their gate."""
+    from optimal_control_paradiag_torch import ProblemConfig, SolverConfig, WaveControlProblem
+
+    wave = WaveControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float32), device="cuda")
+    rel_pol = wave.relative_residual_f64(wave.solve(SolverConfig(method="woodbury", use_pallas=True, polish=1)))
+    print(json.dumps({"phase": "wave_polish", "N_x": N_X, "N_t": N_T, "dtype": "float32", "polish": 1,
+                      "relative_residual_f64": rel_pol}), flush=True)
+    del wave
+    err, b3_entries = bf16x3_phases(torch, smi, torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda"), rel_pol,
+                                    variants, sass)
+    if err:
+        return fail(err)
+    print(json.dumps({"kernels": b3_entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
 
 
 def main() -> int:
@@ -2304,19 +2524,32 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}), flush=True)
         return code
 
-    # 2. build the three sources and the measurement variants, all at once
+    # 2. build the four sources and the measurement variants, all at once
+    b3_only = "--bf16x3" in sys.argv[1:]
     t0 = time.perf_counter()
-    variants = {"woodbury_profile": start_variant(cw.KERNEL_SOURCE, "WOODBURY_PROFILE"),
-                "heat_profile": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PROFILE"),
-                "heat_profile_skip_b": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PROFILE", "HEAT_WOODBURY_SKIP_B"),
-                "heat_planes": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PLANES")}
-    sources = (cw.KERNEL_SOURCE, ch.KERNEL_SOURCE, b3.KERNEL_SOURCE)
+    variants = {"b3_profile": start_variant(b3.WGMMA_SOURCE, "BF16X3_PROFILE")}
+    if not b3_only:
+        variants.update({
+            "woodbury_profile": start_variant(cw.KERNEL_SOURCE, "WOODBURY_PROFILE"),
+            "heat_profile": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PROFILE"),
+            "heat_profile_skip_b": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PROFILE", "HEAT_WOODBURY_SKIP_B"),
+            "heat_planes": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PLANES")})
+    sources = (cw.KERNEL_SOURCE, ch.KERNEL_SOURCE, b3.KERNEL_SOURCE, b3.WGMMA_SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(zip(sources, pool.map(load_library, sources)))
     for source, built in builds:
         print(json.dumps({"phase": "build", "source": source, "nvcc_s": built.seconds,
                           "load_s": time.perf_counter() - t0}), flush=True)
         print_ptxas(built.log)
+    # 42. the wgmma GEMM's SASS: tensor-core wgmma (HGMMA) and TMA loads (UTMALDG)
+    sass = b3_sass(dict(builds)[b3.WGMMA_SOURCE].lib._name)
+    print(json.dumps({"phase": "b3_sass", **sass}), flush=True)
+    if not sass["checked"]:
+        return fail(f"bf16x3_wgmma_kernel's SASS could not be checked: {sass['reason']}")
+    if not (sass["counts"]["HGMMA"] and sass["counts"]["UTMALDG"]):
+        return fail(f"bf16x3_wgmma_kernel's SASS lacks HGMMA or UTMALDG: {sass['counts']}")
+    if b3_only:
+        return bf16x3_alone(torch, smi, kind, variants, sass)
 
     # 3. both kernels vs the twin at the main path's shapes
     prob = WaveControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float32), device="cuda")
@@ -2728,11 +2961,11 @@ def main() -> int:
     err = sharded_phases(torch, smi, flush)
     if err:
         return fail(err)
-    err, b3_entry = bf16x3_phases(torch, smi, flush, rel_pol)
+    err, b3_entries = bf16x3_phases(torch, smi, flush, rel_pol, variants, sass)
     if err:
         return fail(err)
 
-    print(json.dumps({"kernels": [b1, b2, b3_entry]}), flush=True)
+    print(json.dumps({"kernels": [b1, b2, *b3_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

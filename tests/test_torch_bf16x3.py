@@ -116,6 +116,102 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     assert b3.bf16x3_matmul.launches == launches  # the CPU runs the twin
 
 
+
+# ------------------------------------------- the two routes and their layouts
+
+T = b3.WGMMA_MIN_WIDTH
+
+
+@pytest.mark.parametrize("n,k,route", [
+    (T, T, "wgmma"), (T - 1, T - 1, "mma"), (T + 1, T + 1, "wgmma"), (2047, 2047, "wgmma"), (255, 255, "wgmma"),
+    (32, 32, "mma"), (T - 1, 2047, "mma"), (2047, T - 1, "mma"), (0, 0, "mma"),
+])
+def test_route_is_chosen_from_the_shape(n, k, route):
+    """Both N and K must reach the threshold (the crossover of chip_smoke's
+    table, N = K) for the split pass and the wgmma GEMM: the headline DST
+    (2047) and the heat 2D axes (255) take it, the time plans' radix
+    products (32 at N_t = 1024) do not."""
+    assert b3.bf16x3_route(n, k) == route
+
+
+@pytest.mark.parametrize("k,ld", [(0, 0), (1, 64), (63, 64), (64, 64), (65, 128), (255, 256), (2047, 2048)])
+def test_padded_width_is_k_rounded_up_to_64(k, ld):
+    assert b3.padded_width(k) == ld and ld % b3.ROW_ALIGN == 0
+
+
+@pytest.mark.parametrize("K,N", [(70, 9), (5, 3), (128, 130)])
+def test_kmajor_split_matrix_is_padded_and_keeps_its_views(K, N):
+    """The 'wgmma' layout: K-major (2, N, ld) planes, ld a multiple of 64
+    (rows on 128 bytes), zero past K; ``.hi`` and ``.lo`` are (K, N) views
+    bitwise those of the 'mma' layout and of :func:`split_bf16`."""
+    b = torch.from_numpy(np.random.default_rng(K * N).standard_normal((K, N)).astype(np.float32))
+    s, m = b3.split_matrix(b, route="wgmma"), b3.split_matrix(b, route="mma")
+    ld = b3.padded_width(K)
+    assert s.route == "wgmma" and (s.k, s.n) == (K, N) and s.planes.dtype == torch.bfloat16
+    assert s.planes.shape == (2, N, ld) and s.planes.is_contiguous() and s.planes.stride(1) * 2 % 128 == 0
+    assert (s.planes[:, :, K:] == 0).all()
+    hi, lo = b3.split_bf16(b)
+    for view, ref in ((s.hi, hi), (s.lo, lo), (m.hi, hi), (m.lo, lo)):
+        assert view.shape == (K, N) and torch.equal(view, ref)
+    torch.testing.assert_close(b3.bf16x3_matmul(torch.ones(3, K), s), b3.bf16x3_matmul(torch.ones(3, K), m),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_split_matrix_takes_the_shape_route_by_default():
+    for k in (T - 1, T):
+        s = b3.split_matrix(torch.ones(k, k))
+        assert s.route == b3.bf16x3_route(k, k)
+        assert s.planes.shape == ((2, k, b3.padded_width(k)) if s.route == "wgmma" else (2, k, -(-k // 8) * 8))
+    with pytest.raises(ValueError, match="route"):
+        b3.split_matrix(torch.ones(4, 4), route="tf32")
+
+
+@pytest.mark.parametrize("M,K,ld", [(3, 70, 128), (1, 1, 64), (4, 64, 64), (2, 0, 64), (0, 5, 64)])
+def test_split_rows_pads_with_zeros(M, K, ld):
+    """The split pass's plain version: the (2, M, ld) planes of
+    :func:`split_bf16`, zero past K."""
+    rng = np.random.default_rng(M + K)
+    a = torch.from_numpy((rng.standard_normal((M, K)) * 10.0 ** rng.uniform(-6, 6, (M, K))).astype(np.float32))
+    planes = b3.split_rows(a, ld)
+    assert planes.shape == (2, M, ld) and planes.dtype == torch.bfloat16
+    hi, lo = b3.split_bf16(a)
+    assert torch.equal(planes[0, :, :K], hi) and torch.equal(planes[1, :, :K], lo)
+    assert (planes[:, :, K:] == 0).all()
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+def test_cpu_calls_run_the_twins_and_count_no_launch(route):
+    """On CPU tensors the wrapper and the split pass run their plain twins
+    and leave every launch count as it was."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((5, 130)).astype(np.float32))
+    split = b3.split_matrix(torch.from_numpy(rng.standard_normal((130, 129)).astype(np.float32)), route=route)
+    counts = lambda: (b3.bf16x3_matmul.launches, b3.bf16x3_matmul.wgmma_launches, b3.split_rows.launches)
+    before = counts()
+    assert torch.equal(b3.bf16x3_matmul(a, split), b3.bf16x3_matmul_reference(a, split.hi, split.lo))
+    assert torch.equal(b3.split_rows(a, 192), b3.split_rows_reference(a, 192))
+    assert counts() == before
+
+
+def test_split_rows_refuses_bad_widths():
+    for a, ld in ((torch.ones(2, 70), 64), (torch.ones(2, 8), 72), (torch.ones(2, 8, dtype=torch.float64), 64),
+                  (torch.ones(8, 2).T, 64)):
+        with pytest.raises(ValueError, match="split_rows"):
+            b3.split_rows(a, ld)
+
+
+def test_high_dst_at_the_threshold_takes_the_kmajor_split():
+    """A 'high' space whose n reaches the threshold splits its DST-I matrix
+    K-major, and its DST still agrees with JAX's."""
+    kw = dict(dim=1, N_x=T + 1)
+    ts = t_make_space(**kw, dtype=torch.float32, device="cpu", dst_precision="high")
+    assert ts.dst_matrix_split.route == "wgmma"
+    x = np.random.default_rng(T).standard_normal((2, 3, ts.n)).astype(np.float32)
+    js = j_make_space(**kw, dtype=jnp.float32, dst_precision="high")
+    _close(js.dst(jnp.asarray(x)), ts.dst(torch.from_numpy(x)), JAX_TOL)
+    _close(js.idst(jnp.asarray(x)), ts.idst(torch.from_numpy(x)), JAX_TOL)
+
+
 # ------------------------------------------------------------ the sine transform
 
 DST_CASES = [

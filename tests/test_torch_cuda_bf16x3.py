@@ -1,7 +1,8 @@
-"""The bf16x3 GEMM kernel (csrc/bf16x3_gemm.cu, B3) vs its plain PyTorch
-twin on the card, and the paths that reach it: ``P1Space.dst`` with
-``dst_precision='high'``, the four-step plans with ``precision='high'`` and
-the polished direct solves. These tests need a
+"""The bf16x3 GEMM B3 vs its plain PyTorch twin on the card, both routes
+(``'mma'``, csrc/bf16x3_gemm.cu; ``'wgmma'``, the split pass and the TMA /
+wgmma GEMM of csrc/bf16x3_wgmma.cu), and the paths that reach it:
+``P1Space.dst`` with ``dst_precision='high'``, the four-step plans with
+``precision='high'`` and the polished direct solves. These tests need a
 CUDA card and nvcc; they skip without one. The file imports no JAX, so it
 runs on a machine without it:
 
@@ -9,10 +10,12 @@ runs on a machine without it:
 
 Tolerances: the kernel against the twin 1e-5 relative max-abs. The two
 take the same exact bf16 products and differ only in the order of float32
-sums (the twin: three cuBLAS FP32 products, then two adds; the kernel: each
-32-deep K step summed from zero on the tensor cores, then added to a
-running float32 sum). The polished 'high' solves: 1.25 x the 'highest'
-polished residual, as chip_smoke.py holds them.
+sums (the twin: three cuBLAS FP32 products, then two adds; the kernels:
+each 32-deep ('mma') or 64-deep ('wgmma') K step summed from zero on the
+tensor cores, then added to a running float32 sum). Against the float64
+product 2e-5 (bf16x3 drops lo x lo, about 2^-16 of each product; the
+twin reads 3.6e-6 at the headline). The polished 'high' solves: 1.25 x the
+'highest' polished residual, as chip_smoke.py holds them.
 """
 
 import unittest.mock
@@ -31,7 +34,9 @@ from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
 torch.set_num_threads(1)
 
 TOL = 1e-5
+F64_TOL = 2e-5
 RESIDUAL_FACTOR = 1.25
+T = b3.WGMMA_MIN_WIDTH
 
 
 @pytest.fixture
@@ -63,22 +68,26 @@ def test_kernel_matches_twin(cuda, M, K, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kw,lead,launches", [
-    (dict(dim=1, N_x=2048), (2, 1024), 1),
-    (dict(dim=1, N_x=2048), (8, 2, 1024), 1),
-    (dict(dim=2, N_x=256, mass="lumped"), (2, 64), 2),
+@pytest.mark.parametrize("kw,lead,launches,wgmma", [
+    (dict(dim=1, N_x=2048), (2, 1024), 1, 1),
+    (dict(dim=1, N_x=2048), (8, 2, 1024), 1, 1),
+    (dict(dim=2, N_x=256, mass="lumped"), (2, 64), 2, 2 * (b3.bf16x3_route(255, 255) == "wgmma")),
 ], ids=["headline", "batched", "2d"])
-def test_high_dst_launches_the_kernel(cuda, kw, lead, launches):
-    """A CUDA DST with 'high' launches B3 (once per axis) and never runs
-    the twin; it agrees with the twin's DST on the CPU."""
+def test_high_dst_launches_the_kernel(cuda, kw, lead, launches, wgmma):
+    """A CUDA DST with 'high' launches B3 (once per axis) on the route of
+    its shape (the headline on 'wgmma') and never runs the twin; it agrees
+    with the twin's DST on the CPU."""
     sp = make_space(**kw, dtype=torch.float32, device=cuda, dst_precision="high")
     cpu = make_space(**kw, dtype=torch.float32, device="cpu", dst_precision="high")
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(lead + (sp.n,)).astype(np.float32))
-    before = b3.bf16x3_matmul.launches
+    before, before_wgmma = b3.bf16x3_matmul.launches, b3.bf16x3_matmul.wgmma_launches
+    before_split = b3.split_rows.launches
     with unittest.mock.patch.object(b3, "bf16x3_matmul_reference", side_effect=AssertionError("twin on CUDA")):
         y = sp.dst(x.to(cuda))
         torch.cuda.synchronize()
     assert b3.bf16x3_matmul.launches - before == launches
+    assert b3.bf16x3_matmul.wgmma_launches - before_wgmma == wgmma
+    assert b3.split_rows.launches - before_split == wgmma  # one split pass per 'wgmma' GEMM
     assert _rel(y.cpu(), cpu.dst(x)) <= TOL
 
 
@@ -109,12 +118,107 @@ def test_refused_launch_raises(cuda):
     raises; the next launch is unaffected."""
     K, N, ld = 8, 8, 8
     base = torch.zeros(2 * K * ld + 1, dtype=torch.bfloat16, device=cuda)
-    bad = b3.SplitMatrix(planes=base[1:].view(2, K, ld), n=N)
+    bad = b3.SplitMatrix(planes=base[1:].view(2, K, ld), k=K, n=N, route="mma")
     a = torch.ones(4, K, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         b3.bf16x3_matmul(a, bad)
     good = b3.split_matrix(torch.eye(K, device=cuda))
     torch.testing.assert_close(b3.bf16x3_matmul(a, good), a)
+
+
+
+def _operands(cuda, M, K, N, seed, positive=False):
+    rng = np.random.default_rng(seed)
+    draw = (lambda *shape: rng.uniform(0.0, 1.0, shape)) if positive else (lambda *shape: rng.standard_normal(shape))
+    a = torch.from_numpy(draw(M, K).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(draw(K, N).astype(np.float32)).to(cuda)
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    (2048, 2047, 2047), (16384, 2047, 2047), (129, 2047, 2047), (300, 65, 200), (200, 600, 1),
+    (64, T - 1, T - 1), (64, T + 1, T + 1), (1, 1, 1), (130, 64, 128),
+], ids=["headline", "batched", "M129", "K65", "N1", "threshold-1", "threshold+1", "1x1x1", "one-tile"])
+def test_wgmma_route_matches_twin_and_float64(cuda, M, K, N):
+    """The split pass and the wgmma GEMM against the twin and the float64
+    product, at the headline, its batch of 8 and ragged shapes (any M, N,
+    K: TMA zero-fills past M and N, the planes are zero past K)."""
+    a, b = _operands(cuda, M, K, N, M + K + N)
+    split = b3.split_matrix(b, route="wgmma")
+    counts = lambda: (b3.bf16x3_matmul.launches, b3.bf16x3_matmul.wgmma_launches, b3.split_rows.launches)
+    launches, wgmma, splits = counts()
+    out = b3.bf16x3_matmul(a, split)
+    torch.cuda.synchronize()
+    assert counts() == (launches + 1, wgmma + 1, splits + 1)
+    assert out.shape == (M, N) and out.dtype == torch.float32 and out.is_cuda
+    assert _rel(out, b3.bf16x3_matmul_reference(a, split.hi, split.lo)) <= TOL
+    assert _rel(out.double(), a.double() @ b.double()) <= F64_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [T - 1, T + 1])
+def test_default_route_at_the_threshold(cuda, k):
+    """Either side of the threshold, the shape's own route, right."""
+    a, b = _operands(cuda, 300, k, k, k)
+    split = b3.split_matrix(b)
+    assert split.route == ("wgmma" if k >= T else "mma")
+    wgmma = b3.bf16x3_matmul.wgmma_launches
+    out = b3.bf16x3_matmul(a, split)
+    torch.cuda.synchronize()
+    assert b3.bf16x3_matmul.wgmma_launches - wgmma == (split.route == "wgmma")
+    assert _rel(out, b3.bf16x3_matmul_reference(a, split.hi, split.lo)) <= TOL
+    assert _rel(out.double(), a.double() @ b.double()) <= F64_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+def test_drift_of_a_positive_sum(cuda, route):
+    """All-positive A and B at K = 2047: every product adds to the sum, so
+    a truncating tensor-core chain would drift towards zero; each K chunk
+    summed from zero and promoted to a float32 add keeps the float64 gate."""
+    a, b = _operands(cuda, 512, 2047, 512, 7, positive=True)
+    out = b3.bf16x3_matmul(a, b3.split_matrix(b, route=route))
+    torch.cuda.synchronize()
+    assert _rel(out.double(), a.double() @ b.double()) <= F64_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(2048, 2047), (3, 65), (1, 1)])
+def test_split_pass_is_split_bf16_bitwise(cuda, M, K):
+    rng = np.random.default_rng(M + K)
+    x = (rng.standard_normal((M, K)) * 10.0 ** rng.uniform(-30, 30, (M, K))).astype(np.float32)
+    a = torch.from_numpy(x).to(cuda)
+    ld = b3.padded_width(K)
+    launches = b3.split_rows.launches
+    planes = b3.split_rows(a, ld)
+    torch.cuda.synchronize()
+    assert b3.split_rows.launches == launches + 1 and planes.shape == (2, M, ld)
+    hi, lo = b3.split_bf16(a)
+    assert torch.equal(planes[0, :, :K], hi) and torch.equal(planes[1, :, :K], lo)
+    assert (planes[:, :, K:] == 0).all()
+    assert torch.equal(planes.cpu(), b3.split_rows(a.cpu(), ld))
+    assert torch.equal(planes, b3.split_rows_reference(a, ld))
+
+
+@pytest.mark.cuda
+def test_refused_wgmma_launch_raises(cuda):
+    """B's planes off 16 bytes: the 'wgmma' launcher refuses them and the
+    wrapper raises; neither the 'mma' kernel nor the twin takes over, and
+    the next launch is unaffected."""
+    K, N = 64, 8
+    ld = b3.padded_width(K)
+    base = torch.zeros(2 * N * ld + 1, dtype=torch.bfloat16, device=cuda)
+    bad = b3.SplitMatrix(planes=base[1:].view(2, N, ld), k=K, n=N, route="wgmma")
+    a = torch.ones(4, K, device=cuda)
+    launches = b3.bf16x3_matmul.launches
+    with unittest.mock.patch.object(b3, "bf16x3_matmul_reference", side_effect=AssertionError("twin on CUDA")), \
+            unittest.mock.patch.object(b3, "_kernel_library", side_effect=AssertionError("fell back to 'mma'")):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            b3.bf16x3_matmul(a, bad)
+    assert b3.bf16x3_matmul.launches == launches
+    eye = torch.eye(K, N, device=cuda)
+    torch.testing.assert_close(b3.bf16x3_matmul(a, b3.split_matrix(eye, route="wgmma")), a @ eye)
 
 
 @pytest.mark.cuda
