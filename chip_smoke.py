@@ -687,6 +687,7 @@ def transform_phases(torch, smi, flush, headline):
     from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
     from optimal_control_paradiag_torch.paradiag.pc import build_preconditioner
     from optimal_control_paradiag_torch.paradiag.spectral import build_woodbury_solver
+    from optimal_control_paradiag_torch.utils.timing import counters
 
     def timed_(name, fn, **extra):
         return timed(torch, smi, flush, name, fn, **extra)
@@ -758,10 +759,10 @@ def transform_phases(torch, smi, flush, headline):
                       "source": "phases 4-5"}), flush=True)
     for name, (wp, fn) in cands.items():
         direct = fn if name.startswith(("plain", "cuda_kernel_rfft")) else (lambda b, f=fn: f(b)[0])
-        before = cw.fused_woodbury.launches
+        before = counters["b1.launches"]
         x = direct(wp.rhs)
         torch.cuda.synchronize()
-        launches = cw.fused_woodbury.launches - before
+        launches = counters["b1.launches"] - before
         u, p = wp._unscale(x)
         rel = wp.relative_residual_f64(WaveSolution(u=u, p=p, result=None))
         med = timed_(f"wave_solve_{name}", lambda f=direct, b=wp.rhs: f(b))
@@ -779,10 +780,10 @@ def transform_phases(torch, smi, flush, headline):
     # 17c. heat 2D lumped on B2 with the FFT DST (float32)
     hp = HeatControlProblem(ProblemConfig(**HEAT_2D, dtype=torch.float32, dst_method="fft"), device=DEVICE)
     hfn = ch.build_cuda_heat_solver(hp)
-    before = ch.fused_heat.launches
+    before = counters["b2.launches"]
     hsol = hp.solve(SolverConfig(method="woodbury", use_pallas=True))
     torch.cuda.synchronize()
-    hl = ch.fused_heat.launches - before
+    hl = counters["b2.launches"] - before
     hrel = hp.relative_residual_f64(hsol)
     hms = timed_("heat_2d_solve_cuda_kernel_dst_fft", lambda: hfn(hp.rhs))
     timed_("heat_2d_dst_fft", lambda: hp.space.dst(hp.rhs))
@@ -858,7 +859,9 @@ def trace_summary(path: str, top: int = 5) -> dict:
     def busy_in(a, b):
         return sum(max(0.0, min(b, y) - max(a, x)) for x, y in busy)
 
-    stages = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "user_annotation"}
+    # the StageTimer ranges; the port's own spans have a '/' in their names
+    stages = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation" and "/" not in e["name"]}
     per_op = collections.defaultdict(lambda: [0.0, 0])
     for e in dev:
         per_op[e["name"]][0] += e["dur"]
@@ -1064,6 +1067,7 @@ def batched_phases(torch, smi, flush):
     from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
     from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
     from optimal_control_paradiag_torch.paradiag.spectral import spectral_relative_residual
+    from optimal_control_paradiag_torch.utils.timing import counters
 
     figures = {}
     for family in ("wave", "heat"):
@@ -1072,7 +1076,7 @@ def batched_phases(torch, smi, flush):
             prob = WaveControlProblem(cfg, device=DEVICE)
             consts = cw.pack_constants(prob.operator)
             kernels = {"slab": cw.fused_woodbury, "streaming": cw._fused_woodbury_streaming}
-            twin, counter, tol, gate = cw.fused_woodbury_reference, cw.fused_woodbury, TOL_F32, MAX_REL_RESIDUAL
+            twin, counter, tol, gate = cw.fused_woodbury_reference, "b1.launches", TOL_F32, MAX_REL_RESIDUAL
             wb = SolverConfig(method="woodbury", use_pallas=True)
             batched = lambda b, f=prob.make_batched_solver_fn(wb): f(b)[0]
             single = lambda b, f=prob.make_solver_fn(wb): f(b)[0]
@@ -1085,7 +1089,7 @@ def batched_phases(torch, smi, flush):
             prob = HeatControlProblem(cfg, device=DEVICE)
             consts = ch.pack_heat_constants(prob)
             kernels = {"slab": ch.fused_heat, "streaming": ch._fused_heat_streaming}
-            twin, counter, tol, gate = ch.fused_heat_reference, ch.fused_heat, HEAT_TOL_F32, HEAT_MAX_REL_RESIDUAL
+            twin, counter, tol, gate = ch.fused_heat_reference, "b2.launches", HEAT_TOL_F32, HEAT_MAX_REL_RESIDUAL
             batched = single = ch.build_cuda_heat_solver(prob)  # the builder takes (2, N_t, n) or a batch
             plain = prob.build_woodbury_solver()
 
@@ -1103,10 +1107,10 @@ def batched_phases(torch, smi, flush):
         x_twin = twin(bh, consts, 1)
         lane_tw = []
         for kind, fn in kernels.items():
-            before = counter.launches
+            before = counters[counter]
             xb = fn(bh, consts, 1)
             torch.cuda.synchronize()
-            launches = counter.launches - before
+            launches = counters[counter] - before
             bitwise = all(torch.equal(xb[i], fn(bh[i], consts, 1)) for i in range(BATCH))
             errs = [rel_err(torch, xb[i], x_twin[i]) for i in range(BATCH)]
             print(json.dumps({"phase": "batched_kernel", "family": family, "kernel": kind, "B": BATCH, "K": K,
@@ -1120,10 +1124,10 @@ def batched_phases(torch, smi, flush):
         del x_twin, xb
 
         # 20. the batched solve through the entry point: one launch
-        counter.launches = 0
+        counters[counter] = 0
         xs = batched(bs)
         torch.cuda.synchronize()
-        launches = counter.launches
+        launches = counters[counter]
         if xs.shape != bs.shape or xs.dtype != torch.float32 or not bool(torch.isfinite(xs).all()):
             return f"batched {family} solve: {tuple(xs.shape)} {xs.dtype}, finite {bool(torch.isfinite(xs).all())}", None
         rels, lane = [], []
@@ -1133,10 +1137,10 @@ def batched_phases(torch, smi, flush):
         # B seeded noise right-hand sides: one launch, each lane against its
         # single solve and against the plain batch on the same lane
         nb = noise_rhs(torch, prob.rhs, BATCH, 9)
-        counter.launches = 0
+        counters[counter] = 0
         xn = batched(nb)
         torch.cuda.synchronize()
-        noise_launches = counter.launches
+        noise_launches = counters[counter]
         xp = plain(nb)
         noise_lane, noise_rels, plain_rels = [], [], []
         for i in range(BATCH):
@@ -2132,8 +2136,7 @@ def bf16x3_phases(torch, smi, flush, wave_highest_polished: float, variants, sas
     from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, SolverConfig, WaveControlProblem
     from optimal_control_paradiag_torch.fem.space import make_space
     from optimal_control_paradiag_torch.ops import bf16x3 as b3
-    from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
-    from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
+    from optimal_control_paradiag_torch.utils.timing import counters
 
     def high(cls, shape, prec="high"):
         return cls(ProblemConfig(**shape, dtype=torch.float32, dst_precision=prec), device="cuda")
@@ -2240,18 +2243,18 @@ def bf16x3_phases(torch, smi, flush, wave_highest_polished: float, variants, sas
     axis_wgmma = int(hs.route == "wgmma")
     runs = {}
     for name, prob, cfg, fused, want in (
-        ("wave_headline_high_polished", wave, pol, cw.fused_woodbury, (4, 4, 4, 2)),
-        ("wave_headline_high_unpolished", wave, SolverConfig(method="woodbury", use_pallas=True), cw.fused_woodbury,
+        ("wave_headline_high_polished", wave, pol, "b1.launches", (4, 4, 4, 2)),
+        ("wave_headline_high_unpolished", wave, SolverConfig(method="woodbury", use_pallas=True), "b1.launches",
          (2, 2, 2, 1)),
-        ("heat_1d_high_polished", heat1, pol, ch.fused_heat, (4, 4, 4, 2)),
-        ("heat_2d_high_polished", heat2, pol, ch.fused_heat, (8, 8 * axis_wgmma, 8 * axis_wgmma, 2)),
+        ("heat_1d_high_polished", heat1, pol, "b2.launches", (4, 4, 4, 2)),
+        ("heat_2d_high_polished", heat2, pol, "b2.launches", (8, 8 * axis_wgmma, 8 * axis_wgmma, 2)),
     ):
-        b3.bf16x3_matmul.launches = b3.bf16x3_matmul.wgmma_launches = b3.split_rows.launches = fused.launches = 0
+        counters["b3.launches"] = counters["b3.launches.wgmma"] = counters["b3.split.launches"] = counters[fused] = 0
         t0 = time.perf_counter()
         sol = prob.solve(cfg)
         torch.cuda.synchronize()
         first_solve_s = time.perf_counter() - t0
-        launches = (b3.bf16x3_matmul.launches, b3.bf16x3_matmul.wgmma_launches, b3.split_rows.launches, fused.launches)
+        launches = (counters["b3.launches"], counters["b3.launches.wgmma"], counters["b3.split.launches"], counters[fused])
         if launches != want:
             return f"{name} launched (B3, B3 'wgmma', split pass, fused) {launches}, not {want}", None
         if sol.u.shape != (prob.config.N_t, prob.space.n) or not (torch.isfinite(sol.u).all() and torch.isfinite(sol.p).all()):
@@ -2486,6 +2489,7 @@ def main() -> int:
         build_polished_solver,
         spectral_relative_residual,
     )
+    from optimal_control_paradiag_torch.utils.timing import counters
 
     import numpy as np
 
@@ -2631,12 +2635,12 @@ def main() -> int:
 
     # 4. the main path, through the user entry point
     cfg = SolverConfig(method="woodbury", use_pallas=True)
-    cw.fused_woodbury.launches = 0
+    counters["b1.launches"] = 0
     t0 = time.perf_counter()
     sol = prob.solve(cfg)
     torch.cuda.synchronize()
     first_solve_s = time.perf_counter() - t0
-    launches = cw.fused_woodbury.launches
+    launches = counters["b1.launches"]
     if launches < 1:
         return fail("the main path did not launch the fused Woodbury kernel")
     if sol.u.shape != (N_T, n) or sol.u.dtype != torch.float32 or not sol.u.is_cuda:
@@ -2767,17 +2771,19 @@ def main() -> int:
         del p64, c64, bh64, noise
 
     # 8-9. the heat main paths, through the user entry point
+    def b2_kinds():  # B2 launches by schedule kind, as counted
+        return {k: counters["b2.launches." + k] for k in ("slab", "streaming") if counters["b2.launches." + k]}
+
     cfg = SolverConfig(method="woodbury", use_pallas=True)
     heat_launches = {}
     for label, shape in (("1d", HEAT_1D), ("2d", HEAT_2D)):
         hp = heat[label][0]
-        ch.fused_heat.launches = 0
-        ch.fused_heat.kinds.clear()
+        counters["b2.launches"] = counters["b2.launches.slab"] = counters["b2.launches.streaming"] = 0
         t0 = time.perf_counter()
         sol = hp.solve(cfg)
         torch.cuda.synchronize()
         first_solve_s = time.perf_counter() - t0
-        hlaunches, hkinds = ch.fused_heat.launches, dict(ch.fused_heat.kinds)
+        hlaunches, hkinds = counters["b2.launches"], b2_kinds()
         if hlaunches < 1:
             return fail(f"the heat {label} main path did not launch the fused heat kernel")
         if hkinds != {"slab": hlaunches}:
@@ -2789,13 +2795,12 @@ def main() -> int:
             return fail(f"the heat {label} solution is not finite")
         hrel = hp.relative_residual_f64(sol)
         # the polished two-float solve on the same kernel
-        ch.fused_heat.launches = 0
-        ch.fused_heat.kinds.clear()
+        counters["b2.launches"] = counters["b2.launches.slab"] = counters["b2.launches.streaming"] = 0
         x, e = build_polished_solver(hp, polish=1, dword=True, base_solver=ch.build_cuda_heat_solver(hp))(hp.rhs)
         torch.cuda.synchronize()
-        dword_launches = ch.fused_heat.launches
-        if dict(ch.fused_heat.kinds) != {"slab": dword_launches}:
-            return fail(f"the heat {label} dword solve launched {dict(ch.fused_heat.kinds)}, not the slab kernel alone")
+        dword_launches = counters["b2.launches"]
+        if b2_kinds() != {"slab": dword_launches}:
+            return fail(f"the heat {label} dword solve launched {b2_kinds()}, not the slab kernel alone")
         bb = hp.rhs.double().cpu().numpy()
         r = hp.matvec_host_f64(x.double().cpu().numpy() + e.double().cpu().numpy()) - bb
         rel_dword = float(np.linalg.norm(r.ravel()) / np.linalg.norm(bb.ravel()))
@@ -2823,10 +2828,10 @@ def main() -> int:
 
     # 11. the wave headline with physical-space polish
     pol_cfg = SolverConfig(method="woodbury", use_pallas=True, polish=1)
-    cw.fused_woodbury.launches = 0
+    counters["b1.launches"] = 0
     wsol = wave_prob.solve(pol_cfg)
     torch.cuda.synchronize()
-    wave_pol_launches = cw.fused_woodbury.launches
+    wave_pol_launches = counters["b1.launches"]
     rel_pol = wave_prob.relative_residual_f64(wsol)
     wop = wave_prob.operator
     x, e = build_polished_solver(wop, polish=1, dword=True, base_solver=cw.build_cuda_woodbury_solver(wop))(wave_prob.rhs)

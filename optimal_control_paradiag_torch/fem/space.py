@@ -31,6 +31,7 @@ import torch
 
 from optimal_control_paradiag_torch.ops.bf16x3 import SplitMatrix, bf16x3_matmul, split_matrix
 from optimal_control_paradiag_torch.utils.constants import host_const, np_dtype, resolve_device, to_device
+from optimal_control_paradiag_torch.utils.timing import span
 
 # Dense DST matrix budget of dst_method='auto' (the JAX package's choice).
 _DST_MATMUL_BUDGET_BYTES = 64 * 2**20
@@ -289,13 +290,18 @@ class P1Space:
         identity on ``torch.fft``; 'mxu4', the same identity with the
         length-2N_x FFT factored into two radix-~sqrt(2 N_x) real matmul
         stages (``ops.transforms.dst1_mm4``), O(N_x^1.5) flops per row.
-        'fft' and 'mxu4' ignore ``dst_precision``, as in the JAX package."""
+        'fft' and 'mxu4' ignore ``dst_precision``, as in the JAX package.
+        One call is one ``transforms/dst`` span."""
+        with span("transforms/dst"):
+            return self._dst(x)
+
+    def _dst(self, x: torch.Tensor) -> torch.Tensor:
         if self.dst_method == "mxu4":
             return self._dst_mm4_lastaxis(x) if self.dim == 1 else self._dst_2d(x, self._dst_mm4_lastaxis)
         if self._use_fft_dst:
             return self._dst_fft_lastaxis(x) if self.dim == 1 else self._dst_2d(x, self._dst_fft_lastaxis)
         if x.is_complex():
-            return torch.complex(self.dst(x.real), self.dst(x.imag))
+            return torch.complex(self._dst(x.real), self._dst(x.imag))
         if self._bf16x3:
             return self._dst_bf16x3_lastaxis(x) if self.dim == 1 else self._dst_2d(x, self._dst_bf16x3_lastaxis)
         V = self.dst_matrix
@@ -307,8 +313,10 @@ class P1Space:
         return g.reshape(x.shape)
 
     def idst(self, x: torch.Tensor) -> torch.Tensor:
-        """Inverse sine transform: ``(2/N_x)^dim`` times the forward map."""
-        return self.dst(x) * ((2.0 / self.N_x) ** self.dim)
+        """Inverse sine transform: ``(2/N_x)^dim`` times the forward map, in
+        one ``transforms/dst`` span."""
+        with span("transforms/dst"):
+            return self._dst(x) * ((2.0 / self.N_x) ** self.dim)
 
     @functools.cached_property
     def spectrum(self) -> Tuple[Optional[np.ndarray], np.ndarray]:

@@ -17,6 +17,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
+from optimal_control_paradiag_torch.utils.timing import counted_span
 
 
 def cocg(
@@ -69,7 +70,9 @@ def cocg(
     it = 0
     while it < maxiter:
         active = lane_max(r) > tol * bnorm
-        if not bool(active.any()):
+        with counted_span("host/sync"):
+            stop = not bool(active.any())
+        if stop:
             break
         q = A(p)
         alpha = rho / nonzero(dot_T(p, q))

@@ -26,6 +26,11 @@ At the end of a cycle each lane's k x k triangular system is solved on the
 host and the updates ``y @ V[:k]`` run on the device. Each cycle adds two
 more host synchronisations: the norms of its starting residuals, and the
 copy of the ``y`` to the device.
+
+Spans (``utils/timing.py``): each Arnoldi step, with its host part, is a
+``krylov/step``; the starting residual and each cycle's solution update
+with the next residual are a ``krylov/restart``; each host synchronisation
+is a ``host/sync`` (a cycle of k steps: k + 2).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
 from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
 from optimal_control_paradiag_torch.utils.constants import np_dtype
+from optimal_control_paradiag_torch.utils.timing import counted_span, span
 
 # Krylov-basis memory budget (bytes) for the restart clamp, the JAX
 # package's rule and knob: the basis V is (restart+1, *state), and at the
@@ -195,7 +201,8 @@ def gmres_batched(
     clamp_shape = shape
     if lay.sharded:
         size = torch.tensor([float(b[0].numel())], dtype=torch.float64, device=b.device)
-        clamp_shape = (int(lay.all_reduce(size).item()),)
+        with counted_span("host/sync"):
+            clamp_shape = (int(lay.all_reduce(size).item()),)
     restart = clamp_restart(restart, clamp_shape, b.dtype, maxiter)
     op = (lambda v: M(matvec(v))) if side == "left" else (lambda v: matvec(M(v)))
 
@@ -203,12 +210,14 @@ def gmres_batched(
         r = b - matvec(x)
         r = M(r) if side == "left" else r
         beta_t = _norms(r.reshape(B, -1), lay)
-        return r, beta_t, beta_t.cpu().numpy().astype(np_r)
+        with counted_span("host/sync"):
+            return r, beta_t, beta_t.cpu().numpy().astype(np_r)
 
     V = torch.empty((B, restart + 1, b[0].numel()), dtype=b.dtype, device=b.device)
     it = np.zeros(B, np.int64)
     hist = np.full((B, maxiter + 1), np.nan, np_r)
-    r, beta_t, beta = residual(x)
+    with span("krylov/restart"):
+        r, beta_t, beta = residual(x)
     tol = np.maximum(np_r.type(rtol) * beta, np_r.type(atol))
     hist[:, 0] = beta
     res = beta.copy()
@@ -226,29 +235,35 @@ def gmres_batched(
         active = running & (res > tol)
         k = 0
         while active.any():
-            hcol = arnoldi_step(op, V, k, shape, lay).cpu().numpy()  # the step's one sync
-            for i in np.flatnonzero(active):
-                res[i] = givens_update(hcol[i], k, R[i], cs[i], sn[i], g[i])
-                hist[i, it[i] + k + 1] = res[i]
-                steps[i] = k + 1
-            k += 1
-            active &= (k < restart) & (res > tol) & (it + k < maxiter)
-        if steps.any():
-            Y = np.zeros((B, k), np_t)
-            for i in np.flatnonzero(steps):
-                ki = steps[i]
-                Y[i, :ki] = torch.linalg.solve_triangular(
-                    torch.from_numpy(R[i, :ki, :ki].copy()), torch.from_numpy(g[i, :ki].copy())[:, None], upper=True
-                )[:, 0].numpy()
-            Yd = torch.from_numpy(Y).to(b.device)
-            dx = torch.zeros_like(b)
-            for i in np.flatnonzero(steps):
-                dx[i] = (Yd[i, : steps[i]] @ V[i, : steps[i]]).view(shape)
-            x = x + (dx if side == "left" else M(dx))  # dx = 0 on lanes that took no step
-        it += steps
-        running = (res > tol) & (it < maxiter)
-        if running.any():
-            r, beta_t, beta = residual(x)
+            with counted_span("krylov/step"):
+                hcol = arnoldi_step(op, V, k, shape, lay)
+                with counted_span("host/sync"):  # the step's one sync
+                    hcol = hcol.cpu().numpy()
+                for i in np.flatnonzero(active):
+                    res[i] = givens_update(hcol[i], k, R[i], cs[i], sn[i], g[i])
+                    hist[i, it[i] + k + 1] = res[i]
+                    steps[i] = k + 1
+                k += 1
+                active &= (k < restart) & (res > tol) & (it + k < maxiter)
+        with span("krylov/restart"):
+            if steps.any():
+                Y = np.zeros((B, k), np_t)
+                for i in np.flatnonzero(steps):
+                    ki = steps[i]
+                    Y[i, :ki] = torch.linalg.solve_triangular(
+                        torch.from_numpy(R[i, :ki, :ki].copy()), torch.from_numpy(g[i, :ki].copy())[:, None],
+                        upper=True,
+                    )[:, 0].numpy()
+                with counted_span("host/sync"):  # a pageable host-to-device copy
+                    Yd = torch.from_numpy(Y).to(b.device)
+                dx = torch.zeros_like(b)
+                for i in np.flatnonzero(steps):
+                    dx[i] = (Yd[i, : steps[i]] @ V[i, : steps[i]]).view(shape)
+                x = x + (dx if side == "left" else M(dx))  # dx = 0 on lanes that took no step
+            it += steps
+            running = (res > tol) & (it < maxiter)
+            if running.any():
+                r, beta_t, beta = residual(x)
 
     return GmresResult(
         x=x,

@@ -5,7 +5,9 @@ The counterpart of ``optimal_control_paradiag_tpu/krylov/minres.py``: the
 Lanczos + Givens recurrences of Paige and Saunders, in the same order of
 operations, with the same :class:`MinresResult`. The scalar recurrences stay
 device tensors; the stopping test ``phibar > tol`` is read on the host once
-per iteration, the solve's only synchronisation per step.
+per iteration, the solve's only synchronisation per step. Each iteration is
+a ``krylov/step`` span (``utils/timing.py``) that ends with that read, a
+``host/sync``; the first test, before any iteration, is one more.
 
 ``batch_dims`` leading axes of ``b`` are independent systems (lanes): every
 scalar of the recurrence then has that batch shape, each lane stops on its
@@ -20,6 +22,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
+from optimal_control_paradiag_torch.utils.timing import counted_span
 
 
 class MinresResult(NamedTuple):
@@ -82,45 +85,50 @@ def minres(
         it=torch.zeros(lanes, dtype=torch.int64, device=b.device), hist=hist,
     )
 
-    while True:
+    def stopping_test(s):
         active = (s["phibar"] > tol) & (s["it"] < maxiter)
-        if not bool(active.any()):  # the step's one host synchronisation
-            break
-        v = s["y"] / bc(nz(s["beta"]))
-        yv = matvec(v)
-        yv = torch.where(bc(s["it"] >= 1), yv - bc(s["beta"] / nz(s["beta_prev"])) * s["r1"], yv)
-        alfa = dot(v, yv)
-        yv = yv - bc(alfa / nz(s["beta"])) * s["r2"]
-        yn = M(yv)
-        beta_new = torch.sqrt(torch.clamp_min(dot(yv, yn), 0.0))
+        with counted_span("host/sync"):  # the step's one host synchronisation
+            return active, bool(active.any())
 
-        # the previous rotation applied to the new column of T
-        oldeps = s["epsln"]
-        delta = s["cs"] * s["dbar"] + s["sn"] * alfa
-        gbar = s["sn"] * s["dbar"] - s["cs"] * alfa
-        epsln_new = s["sn"] * beta_new
-        dbar_new = -s["cs"] * beta_new
+    active, running = stopping_test(s)
+    while running:
+        with counted_span("krylov/step"):
+            v = s["y"] / bc(nz(s["beta"]))
+            yv = matvec(v)
+            yv = torch.where(bc(s["it"] >= 1), yv - bc(s["beta"] / nz(s["beta_prev"])) * s["r1"], yv)
+            alfa = dot(v, yv)
+            yv = yv - bc(alfa / nz(s["beta"])) * s["r2"]
+            yn = M(yv)
+            beta_new = torch.sqrt(torch.clamp_min(dot(yv, yn), 0.0))
 
-        gamma = torch.sqrt(gbar * gbar + beta_new * beta_new)
-        gamma = nz(gamma, 1e-300)
-        cs_new = gbar / gamma
-        sn_new = beta_new / gamma
-        phi = s["cs"] * 0.0 + cs_new * s["phibar"]
-        phibar_new = sn_new * s["phibar"]
+            # the previous rotation applied to the new column of T
+            oldeps = s["epsln"]
+            delta = s["cs"] * s["dbar"] + s["sn"] * alfa
+            gbar = s["sn"] * s["dbar"] - s["cs"] * alfa
+            epsln_new = s["sn"] * beta_new
+            dbar_new = -s["cs"] * beta_new
 
-        w1 = s["w2"]
-        w2n = s["w"]
-        wn = (v - bc(oldeps) * w1 - bc(delta) * w2n) / bc(gamma)
-        it = s["it"] + 1
-        new = dict(
-            x=s["x"] + bc(phi) * wn, r1=s["r2"], r2=yv, y=yn, beta=beta_new, beta_prev=s["beta"],
-            dbar=dbar_new, epsln=epsln_new, phibar=phibar_new, cs=cs_new, sn=sn_new, w=wn, w2=w2n, it=it,
-            hist=s["hist"].scatter(-1, it[..., None], phibar_new[..., None]),
-        )
-        # lanes that had stopped keep their state
-        keep = dict.fromkeys(("x", "r1", "r2", "y", "w", "w2"), bc(active))
-        keep["hist"] = active[..., None]
-        s = {k: torch.where(keep.get(k, active), v_, s[k]) for k, v_ in new.items()}
+            gamma = torch.sqrt(gbar * gbar + beta_new * beta_new)
+            gamma = nz(gamma, 1e-300)
+            cs_new = gbar / gamma
+            sn_new = beta_new / gamma
+            phi = s["cs"] * 0.0 + cs_new * s["phibar"]
+            phibar_new = sn_new * s["phibar"]
+
+            w1 = s["w2"]
+            w2n = s["w"]
+            wn = (v - bc(oldeps) * w1 - bc(delta) * w2n) / bc(gamma)
+            it = s["it"] + 1
+            new = dict(
+                x=s["x"] + bc(phi) * wn, r1=s["r2"], r2=yv, y=yn, beta=beta_new, beta_prev=s["beta"],
+                dbar=dbar_new, epsln=epsln_new, phibar=phibar_new, cs=cs_new, sn=sn_new, w=wn, w2=w2n, it=it,
+                hist=s["hist"].scatter(-1, it[..., None], phibar_new[..., None]),
+            )
+            # lanes that had stopped keep their state
+            keep = dict.fromkeys(("x", "r1", "r2", "y", "w", "w2"), bc(active))
+            keep["hist"] = active[..., None]
+            s = {k: torch.where(keep.get(k, active), v_, s[k]) for k, v_ in new.items()}
+            active, running = stopping_test(s)
 
     return MinresResult(
         x=s["x"],

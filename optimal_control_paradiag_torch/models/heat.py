@@ -61,6 +61,7 @@ from optimal_control_paradiag_torch.paradiag.spectral import (
 )
 from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
 from optimal_control_paradiag_torch.utils.constants import complex_dtype, host_f64, resolve_device, to_device
+from optimal_control_paradiag_torch.utils.timing import span, spanned
 
 class HeatSolution(NamedTuple):
     u: torch.Tensor  # (N_t, n), u_sol[i] ~ u(t_{i+1}), physical (unscaled)
@@ -365,7 +366,8 @@ class HeatControlProblem:
         ``fulldiag``: rfft over time of ``dst(r)`` (conjugated, scaled by
         1/N_t), the per-(mode, wavenumber) 2x2 Cramer inverse from the
         float64 :meth:`_plan`, then irfft and idst. Raises ``ValueError`` on
-        the 2D consistent mass, as the plan does."""
+        the 2D consistent mass, as the plan does. Each apply is a
+        ``pc/apply`` span."""
         require_full_fp32_matmul()
         sp = self.space
         N_t = self.config.N_t
@@ -379,13 +381,16 @@ class HeatControlProblem:
         invdet = to_device(1.0 / det_h[:K], rdtype, dev)
 
         def apply_pc(r):
-            ru, rp = split_state(torch.conj_physical(torch.fft.rfft(sp.dst(r), dim=-2)) * (1.0 / N_t))
+            s = sp.dst(r)
+            with span("transforms/time_fwd"):
+                ru, rp = split_state(torch.conj_physical(torch.fft.rfft(s, dim=-2)) * (1.0 / N_t))
             yu = (a22 * ru + tm * rp) * invdet
             yp = (a11 * rp - tm * ru) * invdet
-            y = torch.fft.irfft(torch.conj_physical(join_state(yu, yp)), n=N_t, dim=-2) * float(N_t)
+            with span("transforms/time_inv"):
+                y = torch.fft.irfft(torch.conj_physical(join_state(yu, yp)), n=N_t, dim=-2) * float(N_t)
             return sp.idst(y)
 
-        return apply_pc
+        return spanned("pc/apply", apply_pc)
 
     def build_symmetric_system(self, layout=None, time_transform: Optional[str] = None):
         """``(matvec_sym, pc_spd, swap)``, the wave family's symmetrized
@@ -445,6 +450,11 @@ class HeatControlProblem:
     # ----------------------------------------------------------------- solve
 
     def _make_solver(self, solver: SolverConfig):
+        """``run(b) -> (x, result)`` of ``solver``, each call inside the span
+        ``entry/heat.<method>``."""
+        return spanned("entry/heat." + solver.method, self._make_run(solver))
+
+    def _make_run(self, solver: SolverConfig):
         if solver.method == "gmres":
             # as the JAX package: left-preconditioned, from x0 = 0
             pc = self.build_preconditioner() if solver.pc == "paradiag" else None

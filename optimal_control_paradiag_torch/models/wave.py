@@ -66,6 +66,7 @@ from optimal_control_paradiag_torch.paradiag.spectral import (
 from optimal_control_paradiag_torch.paradiag.symmetric import build_symmetric_system
 from optimal_control_paradiag_torch.paradiag.woodbury2d import build_tensor_gmres_solver, build_woodbury2d_solver
 from optimal_control_paradiag_torch.utils.constants import host_f64, resolve_device, to_device
+from optimal_control_paradiag_torch.utils.timing import counted_span, spanned
 
 
 class WaveSolution(NamedTuple):
@@ -158,7 +159,15 @@ class WaveControlProblem:
 
     def _make_solver(self, solver: SolverConfig, batched: bool = False):
         """``run(b, x0=None) -> (x, result)``; ``batched``: b is ``(B, 2,
-        N_t, n)``, and the iterative methods keep a record per lane."""
+        N_t, n)``, and the iterative methods keep a record per lane. Each
+        call is inside the span ``entry/wave.<method>`` (the direct solve of
+        a large triangle mesh: ``entry/wave.eig_richardson``)."""
+        richardson = (solver.method == "woodbury" and not self.space.diagonalizable
+                      and self._eig_richardson_route(solver))
+        method = "eig_richardson" if richardson else solver.method
+        return spanned("entry/wave." + method, self._make_run(solver, batched))
+
+    def _make_run(self, solver: SolverConfig, batched: bool):
         op = self.operator
         krylov = gmres_batched if batched else gmres
         if solver.method == "gmres":
@@ -271,7 +280,8 @@ class WaveControlProblem:
         def run(b, x0=None):
             x, rel = fn(b, basis.V)
             bn = torch.linalg.norm(b.reshape(b.shape[:-3] + (-1,)), dim=-1)
-            rel_h, bn_h = torch.stack([rel, bn]).cpu()
+            with counted_span("host/sync"):
+                rel_h, bn_h = torch.stack([rel, bn]).cpu()
             res = GmresResult(
                 x=x,
                 iterations=torch.full(rel_h.shape, steps, dtype=torch.int64),

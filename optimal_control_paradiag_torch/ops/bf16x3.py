@@ -27,11 +27,11 @@ a different algorithm), so the port carries its own, on every device:
 - :func:`bf16x3_matmul_reference`: the plain PyTorch twin. The product of
   two bf16 values is exact in float32, so the twin differs from the
   kernels only in the order of float32 sums;
-- :func:`bf16x3_matmul`: the wrapper. On a CUDA tensor it launches the
-  route's kernel (built with nvcc at first use) and counts its GEMM
-  launch in ``bf16x3_matmul.launches``, a ``'wgmma'`` call also in
-  ``bf16x3_matmul.wgmma_launches`` and its split pass in
-  ``split_rows.launches``; on a CPU tensor it runs the twin.
+- :func:`bf16x3_matmul`: the wrapper, one ``fused/b3`` span. On a CUDA
+  tensor it launches the route's kernel (built with nvcc at first use) and
+  counts its GEMM launch in ``utils.timing.counters['b3.launches']``, a
+  ``'wgmma'`` call also in ``'b3.launches.wgmma'`` and its split pass in
+  ``'b3.split.launches'``; on a CPU tensor it runs the twin.
   There is no fallback: a failed build or a refused launch raises, and a
   route never gives way to the other.
 
@@ -50,6 +50,7 @@ from typing import Optional, Tuple
 import torch
 
 from optimal_control_paradiag_torch.cuda_build import load_library
+from optimal_control_paradiag_torch.utils.timing import counters, span
 
 KERNEL_SOURCE = "bf16x3_gemm.cu"  # the 'mma' route
 WGMMA_SOURCE = "bf16x3_wgmma.cu"  # the 'wgmma' route and the split pass
@@ -153,8 +154,8 @@ def split_rows(a: torch.Tensor, ld: int) -> torch.Tensor:
     """The split pass: a contiguous float32 (M, K) ``a`` as its (2, M, ld)
     bf16 planes ``[hi, lo]``, zero past K (``ld`` a multiple of
     :data:`ROW_ALIGN`, ``ld >= K``). A CUDA tensor goes to the split kernel
-    of ``csrc/bf16x3_wgmma.cu`` (counted in ``split_rows.launches``, as is
-    the split of each 'wgmma' :func:`bf16x3_matmul` call), a CPU tensor to
+    of ``csrc/bf16x3_wgmma.cu`` (counted in ``counters['b3.split.launches']``,
+    as is the split of each 'wgmma' :func:`bf16x3_matmul` call), a CPU tensor to
     :func:`split_rows_reference`; the two are bitwise equal."""
     M, K = a.shape
     if a.dtype != torch.float32 or not a.is_contiguous() or ld < K or ld % ROW_ALIGN:
@@ -165,11 +166,8 @@ def split_rows(a: torch.Tensor, ld: int) -> torch.Tensor:
     lib = _wgmma_library()
     planes = torch.empty((2, M, ld), dtype=torch.bfloat16, device=a.device)
     _check(lib, "bf16x3 split", lib.bf16x3_split_f32(a.data_ptr(), planes.data_ptr(), M, K, ld, *_device_and_stream(a)))
-    split_rows.launches += 1
+    counters["b3.split.launches"] += 1
     return planes
-
-
-split_rows.launches = 0
 
 
 def bf16x3_matmul_reference(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Tensor) -> torch.Tensor:
@@ -230,11 +228,17 @@ def bf16x3_matmul(a: torch.Tensor, b: SplitMatrix) -> torch.Tensor:
     float32.
 
     A CUDA tensor goes to the kernel of B's route: one GEMM launch, counted
-    in ``bf16x3_matmul.launches``; a 'wgmma' call launches the split pass
-    first, and counts the GEMM also in ``bf16x3_matmul.wgmma_launches`` and
-    the split in ``split_rows.launches``. A build failure or a refused or
-    failed launch raises. A CPU tensor goes to
-    :func:`bf16x3_matmul_reference`."""
+    in ``counters['b3.launches']``; a 'wgmma' call launches the split pass
+    first, and counts the GEMM also in ``counters['b3.launches.wgmma']`` and
+    the split in ``counters['b3.split.launches']``. A build failure or a
+    refused or failed launch raises. A CPU tensor goes to
+    :func:`bf16x3_matmul_reference`. Either is one ``fused/b3`` span, the
+    split pass and the GEMM both inside it."""
+    with span("fused/b3"):
+        return _bf16x3_matmul(a, b)
+
+
+def _bf16x3_matmul(a: torch.Tensor, b: SplitMatrix) -> torch.Tensor:
     if a.dtype != torch.float32 or a.dim() != 2 or a.shape[1] != b.k:
         raise ValueError(f"bf16x3_matmul takes a float32 (M, {b.k}) tensor, got {tuple(a.shape)} {a.dtype}")
     if not a.is_contiguous():
@@ -253,15 +257,15 @@ def bf16x3_matmul(a: torch.Tensor, b: SplitMatrix) -> torch.Tensor:
         return c
     if b.route == "wgmma":
         wgmma_into(_wgmma_library(), a, b, c)
-        split_rows.launches += 1
-        bf16x3_matmul.wgmma_launches += 1
+        counters["b3.split.launches"] += 1
+        counters["b3.launches.wgmma"] += 1
     else:
         lib = _kernel_library()
         hi = b.planes.data_ptr()
         _check(lib, "bf16x3_gemm", lib.bf16x3_gemm_f32(
             a.data_ptr(), hi, hi + 2 * b.planes.stride(0), c.data_ptr(), M, b.n, K, b.planes.shape[2],
             *_device_and_stream(a)))
-    bf16x3_matmul.launches += 1
+    counters["b3.launches"] += 1
     return c
 
 
@@ -275,7 +279,3 @@ def wgmma_into(lib: ctypes.CDLL, a: torch.Tensor, b: SplitMatrix, c: torch.Tenso
     scratch = torch.empty((2, M, ld), dtype=torch.bfloat16, device=a.device)
     _check(lib, "bf16x3_wgmma", lib.bf16x3_wgmma_f32(
         a.data_ptr(), scratch.data_ptr(), b.planes.data_ptr(), c.data_ptr(), M, b.n, K, ld, *_device_and_stream(a)))
-
-
-bf16x3_matmul.launches = 0
-bf16x3_matmul.wgmma_launches = 0

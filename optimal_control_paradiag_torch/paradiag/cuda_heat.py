@@ -26,9 +26,10 @@ The pieces, in the order the solve uses them:
   memory: the phase table padded per bin, and a11r, a11i, invdet in one
   image chunk per block (:func:`_slab_image`);
 - :func:`heat_schedule`: the schedule rule, pure arithmetic on the shape;
-- :func:`fused_heat`: the wrapper. On a CUDA tensor it launches the kernel
-  the constants' schedule names (and counts the launch in
-  ``fused_heat.launches``, and by kind in ``fused_heat.kinds``); on a CPU
+- :func:`fused_heat`: the wrapper, one ``fused/b2`` span. On a CUDA tensor
+  it launches the kernel the constants' schedule names (and counts the
+  launch in ``utils.timing.counters['b2.launches']``, and by kind in
+  ``'b2.launches.<kind>'``); on a CPU
   tensor it runs :func:`fused_heat_reference`, the plain PyTorch twin of the
   kernel body on the same (K, n) constants;
 - :func:`build_cuda_heat_solver`: ``b -> x``: DST matmul, packed time FFT,
@@ -37,7 +38,6 @@ The pieces, in the order the solve uses them:
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 import functools
@@ -58,6 +58,7 @@ from optimal_control_paradiag_torch.paradiag.spectral import (
     pairing_weights,
 )
 from optimal_control_paradiag_torch.utils.constants import to_device
+from optimal_control_paradiag_torch.utils.timing import counters, span
 
 KERNEL_SOURCE = "heat_woodbury.cu"
 # The streaming kernel's block: TJ = 16 columns x KS = 32 K-lanes.
@@ -304,8 +305,8 @@ def _launch(
     x = launch_fused_solve(
         f"heat_{sched.kind}", fns, lib.heat_woodbury_error_string, b_hat, consts, shapes, refine, extra
     )
-    fused_heat.launches += 1
-    fused_heat.kinds[sched.kind] += 1
+    counters["b2.launches"] += 1
+    counters["b2.launches." + sched.kind] += 1
     return x
 
 
@@ -316,18 +317,16 @@ def fused_heat(b_hat: torch.Tensor, consts: HeatConstants, refine: int) -> torch
     whole batch.
 
     A CUDA tensor goes to the kernel the constants' schedule names (one
-    launch, counted in ``fused_heat.launches`` and by kind in
-    ``fused_heat.kinds``); a build failure or a refused or failed launch
-    raises. A CPU tensor goes to :func:`fused_heat_reference`."""
-    if b_hat.device.type == "cpu":
-        return fused_heat_reference(b_hat, consts, refine)
-    if b_hat.device.type != "cuda":
-        raise ValueError(f"fused_heat runs on CUDA or CPU tensors, got {b_hat.device}")
-    return _launch(b_hat, consts, refine, consts.schedule)
-
-
-fused_heat.launches = 0
-fused_heat.kinds = collections.Counter()
+    launch, counted in ``counters['b2.launches']`` and by kind in
+    ``counters['b2.launches.<kind>']``); a build failure or a refused or
+    failed launch raises. A CPU tensor goes to :func:`fused_heat_reference`.
+    Either is one ``fused/b2`` span."""
+    with span("fused/b2"):
+        if b_hat.device.type == "cpu":
+            return fused_heat_reference(b_hat, consts, refine)
+        if b_hat.device.type != "cuda":
+            raise ValueError(f"fused_heat runs on CUDA or CPU tensors, got {b_hat.device}")
+        return _launch(b_hat, consts, refine, consts.schedule)
 
 
 def _fused_heat_streaming(b_hat: torch.Tensor, consts: HeatConstants, refine: int) -> torch.Tensor:

@@ -23,9 +23,9 @@ The pieces, in the order the solve uses them:
   operator's device;
 - :func:`woodbury_schedule`: the schedule rule, pure arithmetic on the
   shape (no CUDA call);
-- :func:`fused_woodbury`: the wrapper. On a CUDA tensor it launches the
-  kernel the schedule names (and counts the launch in
-  ``fused_woodbury.launches``); on a CPU tensor it runs
+- :func:`fused_woodbury`: the wrapper, one ``fused/b1`` span. On a CUDA
+  tensor it launches the kernel the schedule names (and counts the launch
+  in ``utils.timing.counters['b1.launches']``); on a CPU tensor it runs
   :func:`fused_woodbury_reference`, the plain PyTorch twin of the kernel
   body on the same packed constants;
 - :func:`build_cuda_woodbury_solver`: ``b -> x``: DST matmul, packed time
@@ -52,6 +52,7 @@ from optimal_control_paradiag_torch.paradiag.spectral import (
     pairing_weights,
 )
 from optimal_control_paradiag_torch.utils.constants import to_device
+from optimal_control_paradiag_torch.utils.timing import counters, span
 
 KERNEL_SOURCE = "woodbury.cu"
 
@@ -314,7 +315,7 @@ def _launch(b_hat: torch.Tensor, consts: WoodburyConstants, refine: int, sched: 
     x = launch_fused_solve(
         f"woodbury_{sched.kind}", fns, lib.woodbury_error_string, b_hat, consts, _CONST_SHAPES, refine, extra
     )
-    fused_woodbury.launches += 1
+    counters["b1.launches"] += 1
     return x
 
 
@@ -325,17 +326,16 @@ def fused_woodbury(b_hat: torch.Tensor, consts: WoodburyConstants, refine: int) 
 
     A CUDA tensor goes to the kernel :func:`woodbury_schedule` picks for its
     shape: one launch for the whole batch, counted once in
-    ``fused_woodbury.launches``; a build failure or a refused or failed
-    launch raises. A CPU tensor goes to :func:`fused_woodbury_reference`."""
-    if b_hat.device.type == "cpu":
-        return fused_woodbury_reference(b_hat, consts, refine)
-    if b_hat.device.type != "cuda":
-        raise ValueError(f"fused_woodbury runs on CUDA or CPU tensors, got {b_hat.device}")
-    K, n = consts.a11r.shape
-    return _launch(b_hat, consts, refine, woodbury_schedule(K, n, consts.a11r.element_size()))
-
-
-fused_woodbury.launches = 0
+    ``counters['b1.launches']``; a build failure or a refused or failed
+    launch raises. A CPU tensor goes to :func:`fused_woodbury_reference`.
+    Either is one ``fused/b1`` span."""
+    with span("fused/b1"):
+        if b_hat.device.type == "cpu":
+            return fused_woodbury_reference(b_hat, consts, refine)
+        if b_hat.device.type != "cuda":
+            raise ValueError(f"fused_woodbury runs on CUDA or CPU tensors, got {b_hat.device}")
+        K, n = consts.a11r.shape
+        return _launch(b_hat, consts, refine, woodbury_schedule(K, n, consts.a11r.element_size()))
 
 
 def _fused_woodbury_streaming(b_hat: torch.Tensor, consts: WoodburyConstants, refine: int) -> torch.Tensor:

@@ -59,6 +59,7 @@ from optimal_control_paradiag_torch.paradiag.eigs import circulant_eigs
 from optimal_control_paradiag_torch.paradiag.inner import make_dst_inner_solver
 from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
 from optimal_control_paradiag_torch.utils.constants import complex_dtype, host_f64, to_device
+from optimal_control_paradiag_torch.utils.timing import spanned
 
 _VARIANTS = ("fulldiag", "eig", "block", "blockdense", "blockline", "blockband")
 
@@ -81,7 +82,8 @@ def build_preconditioner(
     ``(sigma_k M + dt^2/2 K) w_k = rhs_k``. ``time_transform``: 'fft'
     (``torch.fft``, the default) or 'dft' (real-matmul DFT from
     :mod:`ops.transforms`). ``inner_tol`` and ``inner_maxiter`` bound the
-    'block' variant's COCG.
+    'block' variant's COCG. Each apply is a ``pc/apply`` span, its time
+    transforms ``transforms/time_fwd`` and ``transforms/time_inv`` spans.
 
     ``layout`` (a ``parallel.sharding.ParallelLayout``): ``apply`` maps this
     rank's canonical block of r to its block of y. The FFT stage runs
@@ -128,6 +130,9 @@ def build_preconditioner(
         def fft_t_real(y):
             return torch.fft.fft(y, dim=-2).real
 
+    ifft_t = spanned("transforms/time_fwd", ifft_t)
+    fft_t_real = spanned("transforms/time_inv", fft_t_real)
+
     def to_modes(r):  # canonical real block -> mode_local spectrum
         rhat = ifft_t(lay.move(r, "canonical", "time_local", N_t, n))
         return lay.move(rhat, "time_local", "mode_local", N_t, n)
@@ -160,12 +165,12 @@ def build_preconditioner(
             yp = (a11 * rp - coup * ru) / det  # a21 = +coup
             return from_modes(sp.idst(join_state(yu, yp)))
 
-        return apply_fulldiag
+        return spanned("pc/apply", apply_fulldiag)
 
     if variant == "block":
-        return _block(op, sp, e, c, to_modes, from_modes, inner_tol, inner_maxiter, lay, rows)
+        return spanned("pc/apply", _block(op, sp, e, c, to_modes, from_modes, inner_tol, inner_maxiter, lay, rows))
     if variant == "blockdense":
-        return _blockdense(op, sp, e, c, to_modes, from_modes, rows)
+        return spanned("pc/apply", _blockdense(op, sp, e, c, to_modes, from_modes, rows))
     if variant in ("blockline", "blockband"):
         build = build_blockline_solver if variant == "blockline" else build_blockband_solver
         # sharded: this rank's modes, each factored (no Hermitian mirror)
@@ -174,7 +179,7 @@ def build_preconditioner(
         def apply_banded(r: torch.Tensor) -> torch.Tensor:
             return from_modes(inner_solve(to_modes(r)))
 
-        return apply_banded
+        return spanned("pc/apply", apply_banded)
 
     col = lambda v: to_device(np.asarray(v)[rows, None], cdtype, dev)
     S1, S2, Sig1, Sig2 = col(e.S1), col(e.S2), col(e.Sigma1), col(e.Sigma2)
@@ -201,7 +206,7 @@ def build_preconditioner(
         yp = (S1 * wu + wp) / L2c
         return from_modes(join_state(yu, yp))
 
-    return apply_eig
+    return spanned("pc/apply", apply_eig)
 
 
 def _block(op, sp, e, c, to_modes, from_modes, inner_tol, inner_maxiter, lay, rows):

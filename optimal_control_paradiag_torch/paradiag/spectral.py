@@ -53,6 +53,7 @@ from optimal_control_paradiag_torch.ops.transforms import (
 from optimal_control_paradiag_torch.paradiag.eigs import circulant_eigs
 from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
 from optimal_control_paradiag_torch.utils.constants import host_const, to_device
+from optimal_control_paradiag_torch.utils.timing import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,7 +251,8 @@ def make_halfspectrum_transforms(
     ``ops.transforms.FourStepPlan``; a prime N_t has no radix split and
     falls back to 'fft', as in the JAX package). The DST runs first, on the
     real state. Unknown names raise ``ValueError`` (the JAX package falls
-    back to 'fft'; ROADMAP Queue C).
+    back to 'fft'; ROADMAP Queue C). The time half of each direction is a
+    ``transforms/time_fwd`` or ``transforms/time_inv`` span.
 
     ``layout`` (a ``parallel.sharding.ParallelLayout``) needs 'dft', as in
     the JAX package. x is then a canonical block and xi a ``mode_local``
@@ -276,12 +278,14 @@ def make_halfspectrum_transforms(
         def to_spectral(x):
             s = sp.dst(lay.move(x, "canonical", "mode_local", N_t, n))
             s = lay.move(s, "mode_local", "time_local", N_t, n)
-            xi = torch.complex(torch.einsum("kt,...tn->...kn", Cf, s), torch.einsum("kt,...tn->...kn", Sf, s))
+            with span("transforms/time_fwd"):
+                xi = torch.complex(torch.einsum("kt,...tn->...kn", Cf, s), torch.einsum("kt,...tn->...kn", Sf, s))
             return lay.move(xi, "time_local", "mode_local", K, n)
 
         def from_spectral(xi):
             xi = lay.move(xi, "mode_local", "time_local", K, n)
-            t = torch.einsum("tk,...kn->...tn", Ci, xi.real) + torch.einsum("tk,...kn->...tn", Si, xi.imag)
+            with span("transforms/time_inv"):
+                t = torch.einsum("tk,...kn->...tn", Ci, xi.real) + torch.einsum("tk,...kn->...tn", Si, xi.imag)
             t = lay.move(t, "time_local", "mode_local", N_t, n)
             return lay.move(sp.idst(t).to(rdtype), "mode_local", "canonical", N_t, n)
 
@@ -293,18 +297,26 @@ def make_halfspectrum_transforms(
             return make_halfspectrum_transforms(sp, N_t, rdtype, time_transform="fft")
 
         def to_spectral(x):
-            return time_rfft_conj_mm4(sp.dst(x), plan4)
+            s = sp.dst(x)
+            with span("transforms/time_fwd"):
+                return time_rfft_conj_mm4(s, plan4)
 
         def from_spectral(xi):
-            return sp.idst(time_irfft_conj_mm4(xi, plan4)).to(rdtype)
+            with span("transforms/time_inv"):
+                t = time_irfft_conj_mm4(xi, plan4)
+            return sp.idst(t).to(rdtype)
 
     elif time_transform == "fft2":
 
         def to_spectral(x):
-            return time_rfft_conj_packed(sp.dst(x), N_t)
+            s = sp.dst(x)
+            with span("transforms/time_fwd"):
+                return time_rfft_conj_packed(s, N_t)
 
         def from_spectral(xi):
-            return sp.idst(time_irfft_conj_packed(xi, N_t)).to(rdtype)
+            with span("transforms/time_inv"):
+                t = time_irfft_conj_packed(xi, N_t)
+            return sp.idst(t).to(rdtype)
 
     elif time_transform == "fft":
 
@@ -313,10 +325,12 @@ def make_halfspectrum_transforms(
             # contiguous, as the packed transform returns it: the fused
             # kernels read b_hat in that layout (cuFFT's rfft over the time
             # axis returns a strided result)
-            return (torch.fft.rfft(s, dim=-2).conj() * (1.0 / N_t)).contiguous()
+            with span("transforms/time_fwd"):
+                return (torch.fft.rfft(s, dim=-2).conj() * (1.0 / N_t)).contiguous()
 
         def from_spectral(xi):
-            t = torch.fft.irfft(xi.conj(), n=N_t, dim=-2) * float(N_t)
+            with span("transforms/time_inv"):
+                t = torch.fft.irfft(xi.conj(), n=N_t, dim=-2) * float(N_t)
             return sp.idst(t).to(rdtype)
 
     else:
@@ -438,6 +452,8 @@ def _make_ops(op: AllAtOnceOperator, pl: _SpectralPlan, time_transform: str = "f
     else:
         ifft_t = lambda x: torch.fft.ifft(x.to(cdtype), dim=-2)
         fft_t_real = lambda y: torch.fft.fft(y, dim=-2).real
+    ifft_t = spanned("transforms/time_fwd", ifft_t)
+    fft_t_real = spanned("transforms/time_inv", fft_t_real)
 
     def to_spectral(x):
         xh = ifft_t(lay.move(x, "canonical", "time_local", N_t, n))

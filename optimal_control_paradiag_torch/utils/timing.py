@@ -1,21 +1,81 @@
-"""Wall-clock stage timers (the structured replacement for the reference's
-``time.time()`` prints, ``Control_Wave_PC.py:196-199, 565-569``) and a
-``torch.profiler`` hook.
+"""The port's measurement: spans, counters, wall-clock stage timers (the
+structured replacement for the reference's ``time.time()`` prints,
+``Control_Wave_PC.py:196-199, 565-569``) and a ``torch.profiler`` hook.
 
 The counterpart of ``optimal_control_paradiag_tpu/utils/timing.py``. PyTorch
 returns from a CUDA operation before the card has run it, as JAX dispatch
 does, so a stage fences on its result: ``torch.cuda.synchronize`` of the
 fence's device (JAX: ``block_until_ready``). A CPU tensor needs no fence.
+
+Spans. :func:`span` is the port's one profiler range: a
+``torch.profiler.record_function`` while a ``torch.profiler`` records (a
+schedule's ``active`` steps, the CLI's ``--profile``), else one shared null
+context, so a span costs a flag read when nothing traces. A span is a
+``user_annotation`` event of the trace, on the clock of the card's kernel,
+memcpy and runtime events. The port opens them at its layer boundaries:
+
+- ``entry/wave.<method>``, ``entry/heat.<method>``: each call of a solve
+  function the models build (``method``: woodbury, gmres, minres,
+  spectral, eig_richardson, direct);
+- ``krylov/step``: one Arnoldi step of GMRES through its host Givens
+  updates, one MINRES iteration; ``krylov/restart``: GMRES's restart
+  residual and solution update;
+- ``pc/apply``: one preconditioner apply;
+- ``transforms/dst``: one sine transform (forward or inverse);
+  ``transforms/time_fwd``, ``transforms/time_inv``: the time half of a
+  spectral transform pair;
+- ``fused/b1``, ``fused/b2``, ``fused/b3``: a call of a fused kernel's
+  wrapper (the kernel on the card, its twin on the CPU);
+- ``host/sync``: each place a solve waits on the device from the host.
+
+Counters. :data:`counters` counts whether or not a profiler records:
+``b1.launches``, ``b2.launches`` and ``b2.launches.<kind>``,
+``b3.launches``, ``b3.launches.wgmma`` and ``b3.split.launches`` (the
+kernels' launches), and, through :func:`counted_span`, ``krylov/step`` and
+``host/sync`` (host syncs per Krylov step is their ratio).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import os
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
+
+counters: collections.Counter = collections.Counter()
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The profiler range ``name`` while a ``torch.profiler`` records, else
+    one shared null context (the same object on every call)."""
+    if not _profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def counted_span(name: str):
+    """:func:`span` ``name``, counted in ``counters[name]`` whether or not a
+    profiler records."""
+    counters[name] += 1
+    return span(name)
+
+
+def spanned(name: str, fn: Callable) -> Callable:
+    """``fn`` with each call inside :func:`span` ``name``."""
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with span(name):
+            return fn(*args, **kwargs)
+
+    return call
 
 
 def _fence(target) -> None:
@@ -35,11 +95,11 @@ class StageTimer:
     @contextlib.contextmanager
     def stage(self, name: str, fence=None):
         """Time the block as stage ``name``; under :func:`profile_trace` the
-        block is also a range of that name in the trace."""
+        block is also a span of that name in the trace."""
         t0 = time.perf_counter()
         out = {}
         try:
-            with torch.profiler.record_function(name):
+            with span(name):
                 yield out
                 _fence(out.get("fence", fence))
         finally:

@@ -28,8 +28,7 @@ from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, So
 from optimal_control_paradiag_torch.fem.space import make_space
 from optimal_control_paradiag_torch.ops import bf16x3 as b3
 from optimal_control_paradiag_torch.ops import transforms as tr
-from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
-from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
+from optimal_control_paradiag_torch.utils.timing import counters
 
 torch.set_num_threads(1)
 
@@ -59,10 +58,10 @@ def test_kernel_matches_twin(cuda, M, K, N):
     rng = np.random.default_rng(M + K + N)
     a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda)
     split = b3.split_matrix(torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).to(cuda))
-    launches = b3.bf16x3_matmul.launches
+    launches = counters["b3.launches"]
     out = b3.bf16x3_matmul(a, split)
     torch.cuda.synchronize()
-    assert b3.bf16x3_matmul.launches == launches + 1
+    assert counters["b3.launches"] == launches + 1
     assert out.shape == (M, N) and out.dtype == torch.float32 and out.is_cuda
     assert _rel(out, b3.bf16x3_matmul_reference(a, split.hi, split.lo)) <= TOL
 
@@ -80,14 +79,14 @@ def test_high_dst_launches_the_kernel(cuda, kw, lead, launches, wgmma):
     sp = make_space(**kw, dtype=torch.float32, device=cuda, dst_precision="high")
     cpu = make_space(**kw, dtype=torch.float32, device="cpu", dst_precision="high")
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(lead + (sp.n,)).astype(np.float32))
-    before, before_wgmma = b3.bf16x3_matmul.launches, b3.bf16x3_matmul.wgmma_launches
-    before_split = b3.split_rows.launches
+    before, before_wgmma = counters["b3.launches"], counters["b3.launches.wgmma"]
+    before_split = counters["b3.split.launches"]
     with unittest.mock.patch.object(b3, "bf16x3_matmul_reference", side_effect=AssertionError("twin on CUDA")):
         y = sp.dst(x.to(cuda))
         torch.cuda.synchronize()
-    assert b3.bf16x3_matmul.launches - before == launches
-    assert b3.bf16x3_matmul.wgmma_launches - before_wgmma == wgmma
-    assert b3.split_rows.launches - before_split == wgmma  # one split pass per 'wgmma' GEMM
+    assert counters["b3.launches"] - before == launches
+    assert counters["b3.launches.wgmma"] - before_wgmma == wgmma
+    assert counters["b3.split.launches"] - before_split == wgmma  # one split pass per 'wgmma' GEMM
     assert _rel(y.cpu(), cpu.dst(x)) <= TOL
 
 
@@ -105,10 +104,10 @@ def test_high_plans_launch_the_kernel(cuda, N):
     plans += [(tr.DstFourStepPlan(N, torch.float32, precision="high", device=d), tr.dst1_mm4, e, 4)
               for d in (cuda, "cpu")]
     for (pc, fn, inp, launches), (pcpu, _, _, _) in zip(plans[::2], plans[1::2]):
-        before = b3.bf16x3_matmul.launches
+        before = counters["b3.launches"]
         got = fn(inp.to(cuda), pc)
         torch.cuda.synchronize()
-        assert b3.bf16x3_matmul.launches - before == launches
+        assert counters["b3.launches"] - before == launches
         assert _rel(got.cpu(), fn(inp, pcpu)) <= TOL
 
 
@@ -146,7 +145,7 @@ def test_wgmma_route_matches_twin_and_float64(cuda, M, K, N):
     K: TMA zero-fills past M and N, the planes are zero past K)."""
     a, b = _operands(cuda, M, K, N, M + K + N)
     split = b3.split_matrix(b, route="wgmma")
-    counts = lambda: (b3.bf16x3_matmul.launches, b3.bf16x3_matmul.wgmma_launches, b3.split_rows.launches)
+    counts = lambda: (counters["b3.launches"], counters["b3.launches.wgmma"], counters["b3.split.launches"])
     launches, wgmma, splits = counts()
     out = b3.bf16x3_matmul(a, split)
     torch.cuda.synchronize()
@@ -163,10 +162,10 @@ def test_default_route_at_the_threshold(cuda, k):
     a, b = _operands(cuda, 300, k, k, k)
     split = b3.split_matrix(b)
     assert split.route == ("wgmma" if k >= T else "mma")
-    wgmma = b3.bf16x3_matmul.wgmma_launches
+    wgmma = counters["b3.launches.wgmma"]
     out = b3.bf16x3_matmul(a, split)
     torch.cuda.synchronize()
-    assert b3.bf16x3_matmul.wgmma_launches - wgmma == (split.route == "wgmma")
+    assert counters["b3.launches.wgmma"] - wgmma == (split.route == "wgmma")
     assert _rel(out, b3.bf16x3_matmul_reference(a, split.hi, split.lo)) <= TOL
     assert _rel(out.double(), a.double() @ b.double()) <= F64_TOL
 
@@ -190,10 +189,10 @@ def test_split_pass_is_split_bf16_bitwise(cuda, M, K):
     x = (rng.standard_normal((M, K)) * 10.0 ** rng.uniform(-30, 30, (M, K))).astype(np.float32)
     a = torch.from_numpy(x).to(cuda)
     ld = b3.padded_width(K)
-    launches = b3.split_rows.launches
+    launches = counters["b3.split.launches"]
     planes = b3.split_rows(a, ld)
     torch.cuda.synchronize()
-    assert b3.split_rows.launches == launches + 1 and planes.shape == (2, M, ld)
+    assert counters["b3.split.launches"] == launches + 1 and planes.shape == (2, M, ld)
     hi, lo = b3.split_bf16(a)
     assert torch.equal(planes[0, :, :K], hi) and torch.equal(planes[1, :, :K], lo)
     assert (planes[:, :, K:] == 0).all()
@@ -211,12 +210,12 @@ def test_refused_wgmma_launch_raises(cuda):
     base = torch.zeros(2 * N * ld + 1, dtype=torch.bfloat16, device=cuda)
     bad = b3.SplitMatrix(planes=base[1:].view(2, N, ld), k=K, n=N, route="wgmma")
     a = torch.ones(4, K, device=cuda)
-    launches = b3.bf16x3_matmul.launches
+    launches = counters["b3.launches"]
     with unittest.mock.patch.object(b3, "bf16x3_matmul_reference", side_effect=AssertionError("twin on CUDA")), \
             unittest.mock.patch.object(b3, "_kernel_library", side_effect=AssertionError("fell back to 'mma'")):
         with pytest.raises(RuntimeError, match="launch failed"):
             b3.bf16x3_matmul(a, bad)
-    assert b3.bf16x3_matmul.launches == launches
+    assert counters["b3.launches"] == launches
     eye = torch.eye(K, N, device=cuda)
     torch.testing.assert_close(b3.bf16x3_matmul(a, b3.split_matrix(eye, route="wgmma")), a @ eye)
 
@@ -232,15 +231,15 @@ def test_high_polished_solve(cuda, family, kw, b3_launches):
     base solve (per axis in 2D), the family's kernel once per base solve,
     and the residual within 1.25x of the 'highest' polished solve."""
     Prob = WaveControlProblem if family == "wave" else HeatControlProblem
-    fused = cw.fused_woodbury if family == "wave" else ch.fused_heat
+    fused = "b1.launches" if family == "wave" else "b2.launches"
     cfg = SolverConfig(method="woodbury", use_pallas=True, polish=1)
     res = {}
     for prec in ("highest", "high"):
         p = Prob(ProblemConfig(**kw, dtype=torch.float32, dst_precision=prec), device=cuda)
-        b3.bf16x3_matmul.launches = fused.launches = 0
+        counters["b3.launches"] = counters[fused] = 0
         sol = p.solve(cfg)
         torch.cuda.synchronize()
-        assert (b3.bf16x3_matmul.launches, fused.launches) == ((b3_launches if prec == "high" else 0), 2)
+        assert (counters["b3.launches"], counters[fused]) == ((b3_launches if prec == "high" else 0), 2)
         assert torch.isfinite(sol.u).all() and torch.isfinite(sol.p).all()
         res[prec] = p.relative_residual_f64(sol)
     assert res["high"] <= RESIDUAL_FACTOR * res["highest"]

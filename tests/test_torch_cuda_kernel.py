@@ -32,6 +32,7 @@ from optimal_control_paradiag_torch.ops.transforms import time_rfft_conj_packed
 from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
 from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
 from optimal_control_paradiag_torch.paradiag.spectral import _capacity_matrices
+from optimal_control_paradiag_torch.utils.timing import counters
 
 torch.set_num_threads(1)
 
@@ -64,10 +65,10 @@ def test_kernel_matches_twin(cuda, kw, dtype, refine, tol):
     c = cw.pack_constants(prob.operator)
     assert cw.woodbury_schedule(*c.a11r.shape, c.a11r.element_size()).kind == "slab"
     b_hat = time_rfft_conj_packed(prob.space.dst(prob.rhs), kw["N_t"])
-    before = cw.fused_woodbury.launches
+    before = counters["b1.launches"]
     x = cw.fused_woodbury(b_hat, c, refine)
     torch.cuda.synchronize()
-    assert cw.fused_woodbury.launches == before + 1
+    assert counters["b1.launches"] == before + 1
     assert x.dtype == b_hat.dtype and x.shape == b_hat.shape
     assert _rel(x, cw.fused_woodbury_reference(b_hat, c, refine)) <= tol
 
@@ -103,7 +104,7 @@ def test_schedules_match_twin(cuda, monkeypatch, kw, dtype, refine, tol, forced)
     c = cw.pack_constants(prob.operator)
     sched = cw.woodbury_schedule(*c.a11r.shape, c.a11r.element_size())
     b_hat = time_rfft_conj_packed(prob.space.dst(prob.rhs), kw["N_t"])
-    before = cw.fused_woodbury.launches
+    before = counters["b1.launches"]
     if forced:
         assert sched.kind == "slab"
         x = cw._fused_woodbury_streaming(b_hat, c, refine)
@@ -111,7 +112,7 @@ def test_schedules_match_twin(cuda, monkeypatch, kw, dtype, refine, tol, forced)
         assert sched.kind == ("streaming" if kw["N_t"] == 10000 else "slab")
         x = cw.fused_woodbury(b_hat, c, refine)
     torch.cuda.synchronize()
-    assert cw.fused_woodbury.launches == before + 1
+    assert counters["b1.launches"] == before + 1
     assert x.dtype == b_hat.dtype and x.shape == b_hat.shape
     assert _rel(x, cw.fused_woodbury_reference(b_hat, c, refine)) <= tol
 
@@ -143,10 +144,10 @@ def test_refused_slab_launch_leaves_no_stale_error(cuda):
     b_hat = torch.from_numpy(noise).to(cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         cw._launch(b_hat, c, 1, cw.WoodburySchedule("slab", 1, 128, 6, 300_000))
-    before = cw.fused_woodbury.launches
+    before = counters["b1.launches"]
     x = cw.fused_woodbury(b_hat, c, 1)
     torch.cuda.synchronize()
-    assert cw.fused_woodbury.launches == before + 1
+    assert counters["b1.launches"] == before + 1
     assert _rel(x, cw.fused_woodbury_reference(b_hat, c, 1)) <= 1e-12
 
 
@@ -154,9 +155,9 @@ def test_refused_slab_launch_leaves_no_stale_error(cuda):
 def test_solve_on_card_matches_cpu(cuda):
     cfg = ProblemConfig(N_x=48, N_t=32)
     solver = SolverConfig(method="woodbury", use_pallas=True)
-    before = cw.fused_woodbury.launches
+    before = counters["b1.launches"]
     s_gpu = WaveControlProblem(cfg, device=cuda).solve(solver)
-    assert cw.fused_woodbury.launches == before + 1
+    assert counters["b1.launches"] == before + 1
     s_cpu = WaveControlProblem(cfg, device="cpu").solve(solver)
     assert _rel(s_gpu.u.cpu(), s_cpu.u) <= 1e-11
     assert _rel(s_gpu.p.cpu(), s_cpu.p) <= 1e-11
@@ -185,11 +186,11 @@ def _heat_case(cuda, kw, dtype):
 
 def _counted(fn, kind):
     """Run ``fn()``; check it launched one heat kernel, of ``kind``."""
-    before, kinds = ch.fused_heat.launches, dict(ch.fused_heat.kinds)
+    before, kind_before = counters["b2.launches"], counters["b2.launches." + kind]
     x = fn()
     torch.cuda.synchronize()
-    assert ch.fused_heat.launches == before + 1
-    assert ch.fused_heat.kinds[kind] == kinds.get(kind, 0) + 1
+    assert counters["b2.launches"] == before + 1
+    assert counters["b2.launches." + kind] == kind_before + 1
     return x
 
 
@@ -253,7 +254,7 @@ def test_heat_refused_slab_launch_raises(cuda):
     sched = c.schedule
     one = ch.heat_slab_schedule(6, 1, 8)
     c1 = dataclasses.replace(c, schedule=one, image=ch._slab_image(c.a11r, c.a11i, c.invdet, one))
-    before = ch.fused_heat.launches
+    before = counters["b2.launches"]
     for consts, bad in ((c, dataclasses.replace(sched, smem_bytes=sched.smem_bytes - 8)),
                         (c, dataclasses.replace(sched, lanes=3)),
                         (c1, dataclasses.replace(one, smem_bytes=300_000))):
@@ -261,7 +262,7 @@ def test_heat_refused_slab_launch_raises(cuda):
             ch._launch(b_hat, consts, 1, bad)
     with pytest.raises(ValueError, match="packed for"):
         ch._launch(b_hat, c, 1, one)
-    assert ch.fused_heat.launches == before
+    assert counters["b2.launches"] == before
     x = _counted(lambda: ch.fused_heat(b_hat, c1, 1), "slab")
     assert x.abs().max().item() == 0.0
 
@@ -271,10 +272,10 @@ def test_heat_refused_slab_launch_raises(cuda):
 def test_heat_solve_on_card_matches_cpu(cuda, polish):
     cfg = ProblemConfig(N_x=48, N_t=32)
     solver = SolverConfig(method="woodbury", use_pallas=True, polish=polish)
-    before, slabs = ch.fused_heat.launches, ch.fused_heat.kinds["slab"]
+    before, slabs = counters["b2.launches"], counters["b2.launches.slab"]
     s_gpu = HeatControlProblem(cfg, device=cuda).solve(solver)
-    assert ch.fused_heat.launches == before + 1 + polish
-    assert ch.fused_heat.kinds["slab"] == slabs + 1 + polish
+    assert counters["b2.launches"] == before + 1 + polish
+    assert counters["b2.launches.slab"] == slabs + 1 + polish
     s_cpu = HeatControlProblem(cfg, device="cpu").solve(solver)
     assert _rel(s_gpu.u.cpu(), s_cpu.u) <= 1e-11
     assert _rel(s_gpu.p.cpu(), s_cpu.p) <= 1e-11
@@ -328,16 +329,16 @@ def test_batched_launch_is_bitwise_per_lane(cuda, kw, dtype, tol, family, kind):
     c, bs = _batch_case(cuda, family, kw, dtype)
     if family == "wave":
         fn = cw.fused_woodbury if kind == "slab" else cw._fused_woodbury_streaming
-        twin, counter = cw.fused_woodbury_reference, cw.fused_woodbury
+        twin, counter = cw.fused_woodbury_reference, "b1.launches"
         tol = tol or 2e-4
     else:
         fn = ch.fused_heat if kind == "slab" else ch._fused_heat_streaming
-        twin, counter = ch.fused_heat_reference, ch.fused_heat
+        twin, counter = ch.fused_heat_reference, "b2.launches"
         tol = tol or HEAT_TOL_F32
-    before = counter.launches
+    before = counters[counter]
     xs = fn(bs, c, 1)
     torch.cuda.synchronize()
-    assert counter.launches == before + 1
+    assert counters[counter] == before + 1
     assert xs.shape == bs.shape and xs.dtype == bs.dtype
     for i in range(bs.shape[0]):
         assert torch.equal(xs[i], fn(bs[i].contiguous(), c, 1))
@@ -353,12 +354,12 @@ def test_batch_sizes_refused(cuda, family):
     launch, with a clear error; the C launchers refuse them too."""
     kw = dict(N_x=3, N_t=3)  # n = 2, K = 2
     c, bs = _batch_case(cuda, family, kw, torch.float64, B=2)
-    fn, counter = (cw.fused_woodbury, cw.fused_woodbury) if family == "wave" else (ch.fused_heat, ch.fused_heat)
-    before = counter.launches
+    fn, counter = (cw.fused_woodbury, "b1.launches") if family == "wave" else (ch.fused_heat, "b2.launches")
+    before = counters[counter]
     for B in (0, 65536):
         with pytest.raises(ValueError, match="1 to 65535 lanes"):
             fn(torch.zeros((B,) + tuple(bs.shape[1:]), dtype=bs.dtype, device=cuda), c, 1)
-    assert counter.launches == before
+    assert counters[counter] == before
     if family == "wave":
         lib = cw._kernel_library()
         x = torch.empty_like(bs)
@@ -370,4 +371,4 @@ def test_batch_sizes_refused(cuda, family):
             assert err != 0
     x = fn(bs, c, 1)  # a good launch after the refusals
     torch.cuda.synchronize()
-    assert counter.launches == before + 1 and torch.isfinite(x.abs()).all()
+    assert counters[counter] == before + 1 and torch.isfinite(x.abs()).all()
