@@ -7,10 +7,11 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``, and no network. Phases, each of which fails the run:
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
-2. build the four kernel sources at once, each by its own nvcc: the fused
+2. build the five kernel sources at once, each by its own nvcc: the fused
    Woodbury kernels of ``csrc/woodbury.cu`` (slab and streaming), those
-   of ``csrc/heat_woodbury.cu`` (slab and streaming) and the two routes
-   of the bf16x3 GEMM (phase 42), beside the variant
+   of ``csrc/heat_woodbury.cu`` (slab and streaming), the two routes
+   of the bf16x3 GEMM (phase 42) and the packed FFT's split and merge
+   (``csrc/time_pack.cu``, phase 46), beside the variant
    builds used for measurement only (``-DWOODBURY_PROFILE``,
    ``-DHEAT_WOODBURY_PROFILE``, the same with ``-DHEAT_WOODBURY_SKIP_B``,
    ``-DHEAT_WOODBURY_PLANES``, ``-DBF16X3_PROFILE``); print each kernel's ptxas registers and
@@ -226,6 +227,23 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     cost per call (each route and one FP32 ``torch.mm``); and the polished
     wave solves' host wall, 'high' and 'highest' interleaved, 30 each.
 
+46. the packed time FFT's split and merge kernels (``csrc/time_pack.cu``,
+    built in phase 2): at the wave headline (N = 1024, n = 2047) and on a
+    B = 8 batch, float32 and float64, each against its plain twin bitwise
+    (``torch.equal`` and the bit patterns), timed L2 cold and warm beside
+    its bound (bytes: the input read once, the output written once) and
+    beside the twin; the whole time transform each way, kernel and twin;
+    and the float32 headline direct solves (wave single, heat B = 8) with
+    the kernels, with the twin's glue (the path before the kernels) and
+    with two real rffts (``pack_fft=False``), each timed (device, L2 cold;
+    host wall, in turns), bitwise against the twin's glue, with the
+    counters held to one split and one merge launch per solve, and with
+    the kernel launches of a ``torch.profiler`` trace printed (not held:
+    after the earlier phases' profiles the trace can drop events). The
+    ``kernels`` line gains T1 (split) and T2 (merge): float32 headline L2
+    cold and warm, the twin's time, the bound.
+
+``python3 chip_smoke.py --time-pack`` runs phases 1, 2 and 46 alone;
 ``python3 chip_smoke.py --sharded`` runs phase 1 and phases 37-41 alone;
 ``python3 chip_smoke.py --bf16x3`` runs phases 1, 2, 42 and 43-45 (with
 phase 11's 'highest' polished wave solve for their gate).
@@ -2084,6 +2102,144 @@ def cards_phases(torch, smi, cards: int):
 # kernel; the heat family takes the same option.
 
 
+def time_pack_phases(torch, smi, flush):
+    """Phase 46: the packed FFT's split and merge kernels against their twin
+    and timed; the direct solves through them, through the twin's glue and
+    through two rffts. Prints one JSON line per result; returns (None, the
+    T1 and T2 entries of the ``kernels`` line), or (what failed, None)."""
+    from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, WaveControlProblem
+    from optimal_control_paradiag_torch.ops import time_pack as tp
+    from optimal_control_paradiag_torch.ops import transforms as tr
+    from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
+    from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
+    from optimal_control_paradiag_torch.utils.timing import counters
+
+    def bits(t):
+        r = torch.view_as_real(t.contiguous()) if t.is_complex() else t.contiguous()
+        return r.view(torch.int32 if r.dtype == torch.float32 else torch.int64)
+
+    def same(a, b):
+        return a.shape == b.shape and a.stride() == b.stride() and torch.equal(bits(a), bits(b))
+
+    def kernel_launches(fn):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith(("Memcpy", "Memset")))
+
+    twin_glue = (unittest.mock.patch.object(tp, "split", tp.split_reference),
+                 unittest.mock.patch.object(tp, "merge", tp.merge_reference))
+    launch_counters = ("time_pack.split.launches", "time_pack.merge.launches")
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    ms, bounds = {}, {}
+    K = N_T // 2 + 1
+    n = N_X - 1
+    for dtype in (torch.float32, torch.float64):
+        for lanes in ((), (8,)):
+            s = torch.randn(lanes + (2, N_T, n), dtype=dtype, device="cuda", generator=gen)
+            Z = tr._packed_fft(s)
+            cdt = Z.dtype
+            xi = torch.randn(lanes + (2, K, n), dtype=cdt, device="cuda", generator=gen)
+            item = Z.element_size()
+            B = lanes[0] if lanes else 1
+            nbytes = B * item * (N_T * n + 2 * K * n)  # either way: one read, one write
+            before = {k: counters[k] for k in launch_counters}
+            checks = {"split": same(tp.split_reference(Z, N_T), tp.split(Z, N_T)),
+                      "merge": same(tp.merge_reference(xi, N_T), tp.merge(xi, N_T)),
+                      "forward": same(tr._time_rfft_conj_packed_reference(s, N_T), tr.time_rfft_conj_packed(s, N_T)),
+                      "inverse": same(tr._time_irfft_conj_packed_reference(xi, N_T),
+                                      tr.time_irfft_conj_packed(xi, N_T))}
+            moved = {k: counters[k] - v for k, v in before.items()}
+            label = f"{str(dtype)[6:]}_b{B}"
+            print(json.dumps({"phase": "time_pack_bitwise", "case": label, "split_lanes": tp.check_split(Z, N_T),
+                              "Z_strides": list(Z.stride()), **checks, "counted": moved}), flush=True)
+            if not all(checks.values()) or moved != {k: 2 for k in launch_counters}:
+                return f"time_pack {label}: not bitwise the twin, or launches miscounted: {checks} {moved}", None
+            bound = bounds[label] = roofline(nbytes, 0)
+            for name, fn in (("split", lambda: tp.split(Z, N_T)), ("split_twin", lambda: tp.split_reference(Z, N_T)),
+                             ("merge", lambda: tp.merge(xi, N_T)), ("merge_twin", lambda: tp.merge_reference(xi, N_T)),
+                             ("forward", lambda: tr.time_rfft_conj_packed(s, N_T)),
+                             ("forward_twin", lambda: tr._time_rfft_conj_packed_reference(s, N_T)),
+                             ("inverse", lambda: tr.time_irfft_conj_packed(xi, N_T)),
+                             ("inverse_twin", lambda: tr._time_irfft_conj_packed_reference(xi, N_T))):
+                cold = timed(torch, smi, flush, f"time_pack_{name}_{label}", fn, bytes=nbytes)
+                warm, _, _ = device_ms(torch, fn, None)
+                ms[f"{name}_{label}"], ms[f"{name}_{label}_warm"] = cold, warm
+                print(json.dumps({"timing": f"time_pack_{name}_{label}", "clock": "device", "l2": "warm",
+                                  "median_ms": warm, "card": smi}), flush=True)
+                if name in ("split", "merge"):
+                    print(json.dumps({"phase": "time_pack_bound", "kernel": name, "case": label, "bytes": nbytes,
+                                      "cold_ms": cold, "warm_ms": warm, **bound,
+                                      "share_cold": bound["bound_ms"] / cold}), flush=True)
+            del s, Z, xi
+
+    # the float32 headline direct solves: the kernels, the twin's glue, two rffts
+    wave = WaveControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float32), device="cuda")
+    heat = HeatControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float32), device="cuda")
+    heat_b = torch.stack([heat.rhs * (1.0 + 0.125 * i) for i in range(8)])
+    cases = {"wave_single": (wave.rhs, cw.build_cuda_woodbury_solver(wave.operator),
+                             cw.build_cuda_woodbury_solver(wave.operator, pack_fft=False)),
+             "heat_b8": (heat_b, ch.build_cuda_heat_solver(heat), ch.build_cuda_heat_solver(heat, pack_fft=False))}
+    per_solve = {}
+    for name, (b, packed, rffts) in cases.items():
+        for k in launch_counters:
+            counters[k] = 0
+        x = packed(b)
+        per_solve[name] = {k: counters[k] for k in launch_counters}
+        with twin_glue[0], twin_glue[1]:
+            x_twin = packed(b)
+            glue_launches = kernel_launches(lambda: packed(b))
+        if per_solve[name] != {k: 1 for k in launch_counters}:
+            return f"the {name} solve did not launch one split and one merge: {per_solve[name]}", None
+        if not same(x_twin, x):
+            return f"the {name} solve through the kernels is not bitwise the twin's", None
+        fns = {"kernels": lambda: packed(b), "rffts": lambda: rffts(b)}
+        launches = {k: kernel_launches(f) for k, f in fns.items()}
+        launches["twin_glue"] = glue_launches
+        device = {k: timed(torch, smi, flush, f"time_pack_solve_{name}_{k}", f) for k, f in fns.items()}
+        with twin_glue[0], twin_glue[1]:
+            device["twin_glue"] = timed(torch, smi, flush, f"time_pack_solve_{name}_twin_glue", lambda: packed(b))
+        walls = {k: [] for k in ("kernels", "twin_glue", "rffts")}
+        for _ in range(3):  # in turns: kernels, twin glue, rffts
+            for k in walls:
+                if k == "twin_glue":
+                    with twin_glue[0], twin_glue[1]:
+                        walls[k].append(wall_ms(torch, lambda: packed(b))[0])
+                else:
+                    walls[k].append(wall_ms(torch, fns[k])[0])
+        print(json.dumps({"phase": "time_pack_solves", "case": name, "lanes": b.shape[0] if b.dim() == 4 else 1,
+                          "device_ms_l2_cold": device, "host_wall_ms": {k: statistics.median(v)
+                                                                         for k, v in walls.items()},
+                          "kernel_launches": launches, "counted": per_solve[name], "card": smi}), flush=True)
+
+    def entry(way, kernel, replaces):
+        return {
+            "name": f"time_pack_{way}_cuda",
+            "route": "cuda",
+            "source": "optimal_control_paradiag_torch/csrc/time_pack.cu",
+            "kernel": kernel,
+            "replaces": replaces,
+            "replaces_kind": "eager jnp glue around the FFT, which XLA fuses, not a pl.pallas_call",
+            "launches": per_solve["wave_single"][f"time_pack.{way}.launches"],
+            "launches_heat_b8": per_solve["heat_b8"][f"time_pack.{way}.launches"],
+            "max_abs_err": 0.0,  # bitwise the twin
+            "ms": ms[f"{way}_float32_b1"],
+            "warm_ms": ms[f"{way}_float32_b1_warm"],
+            "plain_ms": ms[f"{way}_twin_float32_b1"],
+            **bounds["float32_b1"],
+            "library_ms": None,
+            "ms_b8": ms[f"{way}_float32_b8"],
+            "bound_ms_b8": bounds["float32_b8"]["bound_ms"],
+            "ms_f64": ms[f"{way}_float64_b1"],
+            "bound_ms_f64": bounds["float64_b1"]["bound_ms"],
+        }
+
+    return None, [entry("split", "T1 time_pack_split_kernel", "optimal_control_paradiag_tpu/ops/transforms.py:282"),
+                  entry("merge", "T2 time_pack_merge_kernel", "optimal_control_paradiag_tpu/ops/transforms.py:295")]
+
+
 def b3_library(torch, b3, a, b_hi, b_lo):
     """The same function from one library call per product: the split and
     three cuBLAS bf16 products with float32 output (``torch.mm(...,
@@ -2134,6 +2290,7 @@ def bf16x3_phases(torch, smi, flush, wave_highest_polished: float, variants, sas
     import numpy as np
 
     from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, SolverConfig, WaveControlProblem
+    from optimal_control_paradiag_torch.cuda_build import declare
     from optimal_control_paradiag_torch.fem.space import make_space
     from optimal_control_paradiag_torch.ops import bf16x3 as b3
     from optimal_control_paradiag_torch.utils.timing import counters
@@ -2324,7 +2481,7 @@ def bf16x3_phases(torch, smi, flush, wave_highest_polished: float, variants, sas
     # warpgroup 0's thread 0, medians over blocks)
     plib = finish_variant(variants["b3_profile"])
     plib.bf16x3_profile_read.argtypes = [ctypes.c_void_p]
-    plib = b3._declare(plib, b3.WGMMA_SIGNATURES, "bf16x3_wgmma_error_string")
+    plib = declare(plib, b3.WGMMA_SIGNATURES, "bf16x3_wgmma_error_string")
     c = torch.empty(a.shape[0], ws.n, device="cuda")
     for _ in range(3):
         b3.wgmma_into(plib, a, ws, c)
@@ -2521,6 +2678,19 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--time-pack" in sys.argv[1:]:
+        from optimal_control_paradiag_torch.ops import time_pack as tp
+
+        built = load_library(tp.KERNEL_SOURCE)
+        print(json.dumps({"phase": "build", "source": tp.KERNEL_SOURCE, "nvcc_s": built.seconds}), flush=True)
+        print_ptxas(built.log)
+        err, tp_entries = time_pack_phases(torch, smi, torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda"))
+        if err:
+            return fail(err)
+        print(json.dumps({"kernels": tp_entries}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--sdc-wall" in sys.argv[1:]:
         code = sdc_wall(torch, smi)
         if code == 0:
@@ -2528,7 +2698,7 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}), flush=True)
         return code
 
-    # 2. build the four sources and the measurement variants, all at once
+    # 2. build the five sources and the measurement variants, all at once
     b3_only = "--bf16x3" in sys.argv[1:]
     t0 = time.perf_counter()
     variants = {"b3_profile": start_variant(b3.WGMMA_SOURCE, "BF16X3_PROFILE")}
@@ -2538,7 +2708,9 @@ def main() -> int:
             "heat_profile": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PROFILE"),
             "heat_profile_skip_b": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PROFILE", "HEAT_WOODBURY_SKIP_B"),
             "heat_planes": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PLANES")})
-    sources = (cw.KERNEL_SOURCE, ch.KERNEL_SOURCE, b3.KERNEL_SOURCE, b3.WGMMA_SOURCE)
+    from optimal_control_paradiag_torch.ops import time_pack as tp
+
+    sources = (cw.KERNEL_SOURCE, ch.KERNEL_SOURCE, b3.KERNEL_SOURCE, b3.WGMMA_SOURCE, tp.KERNEL_SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(zip(sources, pool.map(load_library, sources)))
     for source, built in builds:
@@ -2969,8 +3141,11 @@ def main() -> int:
     err, b3_entries = bf16x3_phases(torch, smi, flush, rel_pol, variants, sass)
     if err:
         return fail(err)
+    err, tp_entries = time_pack_phases(torch, smi, flush)
+    if err:
+        return fail(err)
 
-    print(json.dumps({"kernels": [b1, b2, *b3_entries]}), flush=True)
+    print(json.dumps({"kernels": [b1, b2, *b3_entries, *tp_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

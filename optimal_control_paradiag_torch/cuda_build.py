@@ -22,7 +22,7 @@ import tempfile
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -103,6 +103,34 @@ def load_library(source: str) -> BuiltLibrary:
         built = BuiltLibrary(lib=ctypes.CDLL(path), seconds=seconds, log=log)
         _cache[source] = built
         return built
+
+
+def declare(lib: ctypes.CDLL, signatures: dict, error_string: str) -> ctypes.CDLL:
+    """``lib`` with each launcher of ``signatures`` (name: ctypes argtypes)
+    returning a C int, and its function ``error_string`` (code -> text) as
+    ``lib.error_string``."""
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    getattr(lib, error_string).argtypes = [ctypes.c_int]
+    getattr(lib, error_string).restype = ctypes.c_char_p
+    lib.error_string = getattr(lib, error_string)
+    return lib
+
+
+def check(lib: ctypes.CDLL, what: str, err: int) -> None:
+    """Raise where a launcher of ``lib`` (:func:`declare`) returned an error."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.error_string(err).decode()} ({err})")
+
+
+def device_and_stream(t: torch.Tensor) -> Tuple[int, int]:
+    """A CUDA tensor's device index and the raw handle of that device's
+    current stream (``torch.cuda.current_stream(...).cuda_stream`` would
+    build a Stream object on every call, the larger part of a wrapper's
+    host time)."""
+    index = t.get_device()
+    return index, torch._C._cuda_getCurrentRawStream(index)
 
 
 # The lanes of a batched launch ride the grid's y axis (gridDim.y <= 65535).

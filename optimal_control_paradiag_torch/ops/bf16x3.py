@@ -49,7 +49,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from optimal_control_paradiag_torch.cuda_build import load_library
+from optimal_control_paradiag_torch.cuda_build import check, declare, device_and_stream, load_library
 from optimal_control_paradiag_torch.utils.timing import counters, span
 
 KERNEL_SOURCE = "bf16x3_gemm.cu"  # the 'mma' route
@@ -165,7 +165,7 @@ def split_rows(a: torch.Tensor, ld: int) -> torch.Tensor:
         return split_rows_reference(a, ld)
     lib = _wgmma_library()
     planes = torch.empty((2, M, ld), dtype=torch.bfloat16, device=a.device)
-    _check(lib, "bf16x3 split", lib.bf16x3_split_f32(a.data_ptr(), planes.data_ptr(), M, K, ld, *_device_and_stream(a)))
+    check(lib, "bf16x3 split", lib.bf16x3_split_f32(a.data_ptr(), planes.data_ptr(), M, K, ld, *device_and_stream(a)))
     counters["b3.split.launches"] += 1
     return planes
 
@@ -179,23 +179,13 @@ def bf16x3_matmul_reference(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Ten
     return (a_hi @ b_lo + a_lo @ b_hi) + a_hi @ b_hi
 
 
-def _declare(lib: ctypes.CDLL, signatures: dict, error_string: str) -> ctypes.CDLL:
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    getattr(lib, error_string).argtypes = [ctypes.c_int]
-    getattr(lib, error_string).restype = ctypes.c_char_p
-    lib.error_string = getattr(lib, error_string)
-    return lib
-
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_library() -> ctypes.CDLL:
     """The built 'mma' library, with its ctypes signatures declared."""
-    return _declare(load_library(KERNEL_SOURCE).lib, {"bf16x3_gemm_f32": [_P] * 4 + [_I] * 5 + [_P]},
+    return declare(load_library(KERNEL_SOURCE).lib, {"bf16x3_gemm_f32": [_P] * 4 + [_I] * 5 + [_P]},
                     "bf16x3_error_string")
 
 
@@ -205,21 +195,7 @@ WGMMA_SIGNATURES = {"bf16x3_split_f32": [_P, _P] + [_I] * 4 + [_P], "bf16x3_wgmm
 @functools.lru_cache(maxsize=None)
 def _wgmma_library() -> ctypes.CDLL:
     """The built 'wgmma' library (the split pass and the GEMM)."""
-    return _declare(load_library(WGMMA_SOURCE).lib, WGMMA_SIGNATURES, "bf16x3_wgmma_error_string")
-
-
-def _device_and_stream(t: torch.Tensor) -> Tuple[int, int]:
-    """A CUDA tensor's device index and the raw handle of that device's
-    current stream (``torch.cuda.current_stream(...).cuda_stream`` would
-    build a Stream object on every call, the larger part of the wrapper's
-    host time)."""
-    index = t.get_device()
-    return index, torch._C._cuda_getCurrentRawStream(index)
-
-
-def _check(lib: ctypes.CDLL, what: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.error_string(err).decode()} ({err})")
+    return declare(load_library(WGMMA_SOURCE).lib, WGMMA_SIGNATURES, "bf16x3_wgmma_error_string")
 
 
 def bf16x3_matmul(a: torch.Tensor, b: SplitMatrix) -> torch.Tensor:
@@ -262,9 +238,9 @@ def _bf16x3_matmul(a: torch.Tensor, b: SplitMatrix) -> torch.Tensor:
     else:
         lib = _kernel_library()
         hi = b.planes.data_ptr()
-        _check(lib, "bf16x3_gemm", lib.bf16x3_gemm_f32(
+        check(lib, "bf16x3_gemm", lib.bf16x3_gemm_f32(
             a.data_ptr(), hi, hi + 2 * b.planes.stride(0), c.data_ptr(), M, b.n, K, b.planes.shape[2],
-            *_device_and_stream(a)))
+            *device_and_stream(a)))
     counters["b3.launches"] += 1
     return c
 
@@ -277,5 +253,5 @@ def wgmma_into(lib: ctypes.CDLL, a: torch.Tensor, b: SplitMatrix, c: torch.Tenso
     M, K = a.shape
     ld = b.planes.shape[2]
     scratch = torch.empty((2, M, ld), dtype=torch.bfloat16, device=a.device)
-    _check(lib, "bf16x3_wgmma", lib.bf16x3_wgmma_f32(
-        a.data_ptr(), scratch.data_ptr(), b.planes.data_ptr(), c.data_ptr(), M, b.n, K, ld, *_device_and_stream(a)))
+    check(lib, "bf16x3_wgmma", lib.bf16x3_wgmma_f32(
+        a.data_ptr(), scratch.data_ptr(), b.planes.data_ptr(), c.data_ptr(), M, b.n, K, ld, *device_and_stream(a)))

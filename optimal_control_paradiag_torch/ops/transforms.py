@@ -12,7 +12,8 @@ families, all with the numpy fft conventions of the JAX package:
 - **two-for-one ("packed")**: the half-spectrum pipeline transforms a REAL
   pair (u, p); packing z = u + i p runs ONE complex FFT over the time axis
   instead of two real rffts, and the two half-spectra split out by
-  Hermitian symmetry.
+  Hermitian symmetry (the split and the merge: ``ops/time_pack.py``, a
+  hand-written CUDA kernel each on the card).
 
 Conventions of the half-spectrum transforms (c in {u, p}):
 
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
+from optimal_control_paradiag_torch.ops import time_pack
 from optimal_control_paradiag_torch.ops.bf16x3 import bf16x3_matmul, split_matrix
 from optimal_control_paradiag_torch.utils.constants import resolve_device, to_device
 
@@ -287,27 +289,43 @@ def dst1_mm4(x: torch.Tensor, p: DstFourStepPlan) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _packed_fft(s: torch.Tensor) -> torch.Tensor:
+    """``fft(s0 + i s1)`` over the time axis of a real ``(..., 2, N, n)``
+    pair: the one complex FFT of the two-for-one transform."""
+    return torch.fft.fft(torch.complex(s[..., 0, :, :], s[..., 1, :, :]), dim=-2)
+
+
+def _packed_ifft(Z: torch.Tensor) -> torch.Tensor:
+    """The real ``(..., 2, N, n)`` pair ``[re, im]`` of ``ifft(Z)`` over the
+    time axis: the one complex inverse FFT of the two-for-one transform."""
+    z = torch.fft.ifft(Z, dim=-2)
+    return torch.stack([z.real, z.imag], dim=-3)
+
+
 def time_rfft_conj_packed(s: torch.Tensor, N: int) -> torch.Tensor:
     """``conj(rfft(s, axis=-2))/N`` of a real ``(..., 2, N, n)`` pair via one
     packed complex FFT; returns a contiguous ``(..., 2, K, n)`` complex
-    tensor."""
-    K = N // 2 + 1
-    Z = torch.fft.fft(torch.complex(s[..., 0, :, :], s[..., 1, :, :]), dim=-2)
-    # Zm[k] = conj(Z[(N - k) % N])
-    Zm = torch.roll(torch.flip(Z, dims=(-2,)), 1, dims=-2).conj()
-    R0 = 0.5 * (Z + Zm)  # rfft(s0), all N bins (Hermitian)
-    R1 = -0.5j * (Z - Zm)  # rfft(s1)
-    return torch.stack([R0[..., :K, :].conj(), R1[..., :K, :].conj()], dim=-3) * (1.0 / N)
+    tensor. The split after the FFT is ``ops.time_pack.split``: its CUDA
+    kernel on the card, bitwise :func:`_time_rfft_conj_packed_reference`."""
+    return time_pack.split(_packed_fft(s), N)
 
 
 def time_irfft_conj_packed(xi: torch.Tensor, N: int) -> torch.Tensor:
     """``irfft(conj(xi_c), n=N, axis=-2) * N`` for the ``(..., 2, K, n)``
     pair via one packed complex inverse FFT; returns the real
-    ``(..., 2, N, n)`` pair."""
-    K = xi.shape[-2]
-    a, b = xi[..., 0, :, :].conj(), xi[..., 1, :, :].conj()
-    W = (a + 1j * b) * N  # R0 + i R1, bins < K
-    W2 = (a - 1j * b) * N  # R0 - i R1
-    mirror = torch.flip(W2[..., 1 : N - K + 1, :].conj(), dims=(-2,))  # bins K..N-1
-    z = torch.fft.ifft(torch.cat([W, mirror], dim=-2), dim=-2)
-    return torch.stack([z.real, z.imag], dim=-3)
+    ``(..., 2, N, n)`` pair. The merge before the FFT is
+    ``ops.time_pack.merge``: its CUDA kernel on the card, bitwise
+    :func:`_time_irfft_conj_packed_reference`."""
+    return _packed_ifft(time_pack.merge(xi, N))
+
+
+def _time_rfft_conj_packed_reference(s: torch.Tensor, N: int) -> torch.Tensor:
+    """:func:`time_rfft_conj_packed` in plain PyTorch on every device: the
+    FFT and the eager split (``time_pack.split_reference``)."""
+    return time_pack.split_reference(_packed_fft(s), N)
+
+
+def _time_irfft_conj_packed_reference(xi: torch.Tensor, N: int) -> torch.Tensor:
+    """:func:`time_irfft_conj_packed` in plain PyTorch on every device: the
+    eager merge (``time_pack.merge_reference``) and the FFT."""
+    return _packed_ifft(time_pack.merge_reference(xi, N))

@@ -39,6 +39,7 @@ import torch
 
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
 from optimal_control_paradiag_torch.krylov.gmres import gmres
+from optimal_control_paradiag_torch.ops import time_pack
 from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator, join_state, split_state
 from optimal_control_paradiag_torch.ops.transforms import (
     FourStepPlan,
@@ -245,7 +246,8 @@ def make_halfspectrum_transforms(
         x  = idst(irfft(conj(xi)) * N_t)             (..., 2, N_t, n) real
 
     ``time_transform``: 'fft' (two real rffts), 'fft2' (one packed complex
-    FFT, ``ops.transforms.time_rfft_conj_packed``), 'dft' (the rfft/irfft
+    FFT, ``ops.transforms.time_rfft_conj_packed``; on the card its split and
+    merge are the kernels of ``ops/time_pack.py``), 'dft' (the rfft/irfft
     as split-real matmuls with K x N_t cos/sin matrices, the pairing weights
     folded into the inverse's) or 'mxu' (the four-step factorization,
     ``ops.transforms.FourStepPlan``; a prime N_t has no radix split and
@@ -307,6 +309,8 @@ def make_halfspectrum_transforms(
             return sp.idst(t).to(rdtype)
 
     elif time_transform == "fft2":
+        if dev.type == "cuda":
+            time_pack.kernel_library()  # the split and merge kernels build here, at set-up
 
         def to_spectral(x):
             s = sp.dst(x)

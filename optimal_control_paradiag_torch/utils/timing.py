@@ -30,7 +30,8 @@ memcpy and runtime events. The port opens them at its layer boundaries:
 
 Counters. :data:`counters` counts whether or not a profiler records:
 ``b1.launches``, ``b2.launches`` and ``b2.launches.<kind>``,
-``b3.launches``, ``b3.launches.wgmma`` and ``b3.split.launches`` (the
+``b3.launches``, ``b3.launches.wgmma``, ``b3.split.launches``,
+``time_pack.split.launches`` and ``time_pack.merge.launches`` (the
 kernels' launches), and, through :func:`counted_span`, ``krylov/step`` and
 ``host/sync`` (host syncs per Krylov step is their ratio).
 """
