@@ -31,7 +31,7 @@ import torch
 
 from optimal_control_paradiag_torch.ops.bf16x3 import SplitMatrix, bf16x3_matmul, split_matrix
 from optimal_control_paradiag_torch.utils.constants import host_const, np_dtype, resolve_device, to_device
-from optimal_control_paradiag_torch.utils.timing import span
+from optimal_control_paradiag_torch.utils.timing import counted_span, span
 
 # Dense DST matrix budget of dst_method='auto' (the JAX package's choice).
 _DST_MATMUL_BUDGET_BYTES = 64 * 2**20
@@ -275,10 +275,13 @@ class P1Space:
 
     def _dst_2d(self, x: torch.Tensor, lastaxis) -> torch.Tensor:
         """A last-axis DST applied over both grid axes of a flat 2D state
-        (the second pass on the last two axes transposed)."""
-        g = lastaxis(x.reshape(x.shape[:-1] + self.grid_shape))
-        g = lastaxis(torch.swapaxes(g, -1, -2))
-        return torch.swapaxes(g, -1, -2).reshape(x.shape)
+        (the second pass on the last two axes transposed): one
+        ``transforms/dst.x`` and one ``transforms/dst.y`` span, counted."""
+        with counted_span("transforms/dst.x"):
+            g = lastaxis(x.reshape(x.shape[:-1] + self.grid_shape))
+        with counted_span("transforms/dst.y"):
+            g = lastaxis(torch.swapaxes(g, -1, -2))
+            return torch.swapaxes(g, -1, -2).reshape(x.shape)
 
     def dst(self, x: torch.Tensor) -> torch.Tensor:
         """Forward sine transform over the (flat) space axis, by
@@ -291,7 +294,12 @@ class P1Space:
         length-2N_x FFT factored into two radix-~sqrt(2 N_x) real matmul
         stages (``ops.transforms.dst1_mm4``), O(N_x^1.5) flops per row.
         'fft' and 'mxu4' ignore ``dst_precision``, as in the JAX package.
-        One call is one ``transforms/dst`` span."""
+        One call is one ``transforms/dst`` span; in 2D its x pass (the last
+        axis) and its y pass (the matmul's left product, or the other
+        routes' transposed copies, product and copy back) are a
+        ``transforms/dst.x`` and a ``transforms/dst.y`` span inside it, each
+        counted in ``utils.timing.counters`` (per real product: a complex
+        input to the matmul route takes two of each)."""
         with span("transforms/dst"):
             return self._dst(x)
 
@@ -307,10 +315,12 @@ class P1Space:
         V = self.dst_matrix
         if self.dim == 1:
             return torch.matmul(x, V)
-        g = x.reshape(x.shape[:-1] + self.grid_shape)
-        g = torch.matmul(g, V)  # over x:  [..., y, j]
-        g = torch.matmul(V.T, g)  # over y:  [..., j, x]
-        return g.reshape(x.shape)
+        with counted_span("transforms/dst.x"):
+            g = x.reshape(x.shape[:-1] + self.grid_shape)
+            g = torch.matmul(g, V)  # over x:  [..., y, j]
+        with counted_span("transforms/dst.y"):
+            g = torch.matmul(V.T, g)  # over y:  [..., j, x]
+            return g.reshape(x.shape)
 
     def idst(self, x: torch.Tensor) -> torch.Tensor:
         """Inverse sine transform: ``(2/N_x)^dim`` times the forward map, in

@@ -21,9 +21,10 @@ memcpy and runtime events. The port opens them at its layer boundaries:
   updates, one MINRES iteration; ``krylov/restart``: GMRES's restart
   residual and solution update;
 - ``pc/apply``: one preconditioner apply;
-- ``transforms/dst``: one sine transform (forward or inverse);
-  ``transforms/time_fwd``, ``transforms/time_inv``: the time half of a
-  spectral transform pair;
+- ``transforms/dst``: one sine transform (forward or inverse), and
+  inside it on a 2D space ``transforms/dst.x`` and ``transforms/dst.y``,
+  its pass over each grid axis; ``transforms/time_fwd``,
+  ``transforms/time_inv``: the time half of a spectral transform pair;
 - ``fused/b1``, ``fused/b2``, ``fused/b3``: a call of a fused kernel's
   wrapper (the kernel on the card, its twin on the CPU);
 - ``host/sync``: each place a solve waits on the device from the host.
@@ -33,7 +34,8 @@ Counters. :data:`counters` counts whether or not a profiler records:
 ``b3.launches``, ``b3.launches.wgmma``, ``b3.split.launches``,
 ``time_pack.split.launches`` and ``time_pack.merge.launches`` (the
 kernels' launches), and, through :func:`counted_span`, ``krylov/step`` and
-``host/sync`` (host syncs per Krylov step is their ratio).
+``host/sync`` (host syncs per Krylov step is their ratio) and the 2D sine
+transform's ``transforms/dst.x`` and ``transforms/dst.y``.
 """
 
 from __future__ import annotations
