@@ -10,8 +10,8 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
 2. build the five kernel sources at once, each by its own nvcc: the fused
    Woodbury kernels of ``csrc/woodbury.cu`` (slab and streaming), those
    of ``csrc/heat_woodbury.cu`` (slab and streaming), the two routes
-   of the bf16x3 GEMM (phase 42) and the packed FFT's split and merge
-   (``csrc/time_pack.cu``, phase 46), beside the variant
+   of the bf16x3 GEMM (phase 42) and the packed FFT's pack, split, merge
+   and unpack (``csrc/time_pack.cu``, phase 46), beside the variant
    builds used for measurement only (``-DWOODBURY_PROFILE``,
    ``-DHEAT_WOODBURY_PROFILE``, the same with ``-DHEAT_WOODBURY_SKIP_B``,
    ``-DHEAT_WOODBURY_PLANES``, ``-DBF16X3_PROFILE``); print each kernel's ptxas registers and
@@ -227,21 +227,25 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     cost per call (each route and one FP32 ``torch.mm``); and the polished
     wave solves' host wall, 'high' and 'highest' interleaved, 30 each.
 
-46. the packed time FFT's split and merge kernels (``csrc/time_pack.cu``,
-    built in phase 2): at the wave headline (N = 1024, n = 2047) and on a
-    B = 8 batch, float32 and float64, each against its plain twin bitwise
-    (``torch.equal`` and the bit patterns), timed L2 cold and warm beside
-    its bound (bytes: the input read once, the output written once) and
-    beside the twin; the whole time transform each way, kernel and twin;
-    and the float32 headline direct solves (wave single, heat B = 8) with
-    the kernels, with the twin's glue (the path before the kernels) and
-    with two real rffts (``pack_fft=False``), each timed (device, L2 cold;
-    host wall, in turns), bitwise against the twin's glue, with the
-    counters held to one split and one merge launch per solve, and with
-    the kernel launches of a ``torch.profiler`` trace printed (not held:
-    after the earlier phases' profiles the trace can drop events). The
-    ``kernels`` line gains T1 (split) and T2 (merge): float32 headline L2
-    cold and warm, the twin's time, the bound.
+46. the packed time FFT's pack, split, merge and unpack kernels
+    (``csrc/time_pack.cu``, built in phase 2): at the wave headline
+    (N = 1024, n = 2047) and on a B = 8 batch, float32 and float64, each
+    against its plain twin bitwise (``torch.equal`` and the bit patterns;
+    pack's output in the layout cuFFT's plan reads, and cuFFT on it bitwise
+    cuFFT on the twin's), timed L2 cold and warm beside its bound (bytes:
+    the input read once, the output written once), beside the twin and,
+    for pack, beside the torch calls it replaces; the whole time transform
+    each way, kernels and the eager composition before them; and the
+    float32 direct solves of the headline (wave single, heat B = 8) and of
+    the 2D heat cell (B = 8) with the kernels, with the eager composition
+    and with two real rffts (``pack_fft=False``), each timed (device, L2
+    cold; host wall, in turns), bitwise against the eager composition, with
+    the counters held to one launch of each kernel per solve, and with the
+    kernel launches of a ``torch.profiler`` trace printed (not held: after
+    the earlier phases' profiles the trace can drop events). The
+    ``kernels`` line gains T1 (split), T2 (merge), T3 (pack) and T4
+    (unpack): float32 headline L2 cold and warm, the twin's time, the
+    bound.
 
 ``python3 chip_smoke.py --time-pack`` runs phases 1, 2 and 46 alone;
 ``python3 chip_smoke.py --sharded`` runs phase 1 and phases 37-41 alone;
@@ -2103,23 +2107,28 @@ def cards_phases(torch, smi, cards: int):
 
 
 def time_pack_phases(torch, smi, flush):
-    """Phase 46: the packed FFT's split and merge kernels against their twin
-    and timed; the direct solves through them, through the twin's glue and
-    through two rffts. Prints one JSON line per result; returns (None, the
-    T1 and T2 entries of the ``kernels`` line), or (what failed, None)."""
+    """Phase 46: the packed FFT's pack, split, merge and unpack kernels
+    against their twins and timed; the direct solves through them, through
+    the eager composition before the kernels and through two rffts. Prints
+    one JSON line per result; returns (None, the T1-T4 entries of the
+    ``kernels`` line), or (what failed, None)."""
     from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, WaveControlProblem
     from optimal_control_paradiag_torch.ops import time_pack as tp
     from optimal_control_paradiag_torch.ops import transforms as tr
     from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
     from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
+    from optimal_control_paradiag_torch.paradiag import spectral
     from optimal_control_paradiag_torch.utils.timing import counters
 
     def bits(t):
         r = torch.view_as_real(t.contiguous()) if t.is_complex() else t.contiguous()
         return r.view(torch.int32 if r.dtype == torch.float32 else torch.int64)
 
+    def same_values(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+
     def same(a, b):
-        return a.shape == b.shape and a.stride() == b.stride() and torch.equal(bits(a), bits(b))
+        return a.stride() == b.stride() and same_values(a, b)
 
     def kernel_launches(fn):
         torch.cuda.synchronize()
@@ -2129,9 +2138,12 @@ def time_pack_phases(torch, smi, flush):
         return sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
                    and not e.key.startswith(("Memcpy", "Memset")))
 
-    twin_glue = (unittest.mock.patch.object(tp, "split", tp.split_reference),
-                 unittest.mock.patch.object(tp, "merge", tp.merge_reference))
-    launch_counters = ("time_pack.split.launches", "time_pack.merge.launches")
+    def eager():  # the time transforms as the eager composition before the kernels
+        return (unittest.mock.patch.object(spectral, "time_rfft_conj_packed", tr._time_rfft_conj_packed_reference),
+                unittest.mock.patch.object(spectral, "time_irfft_conj_packed", tr._time_irfft_conj_packed_reference))
+
+    ways = ("pack", "split", "merge", "unpack")
+    launch_counters = tuple(f"time_pack.{w}.launches" for w in ways)
     gen = torch.Generator(device="cuda").manual_seed(46)
     ms, bounds = {}, {}
     K = N_T // 2 + 1
@@ -2139,73 +2151,99 @@ def time_pack_phases(torch, smi, flush):
     for dtype in (torch.float32, torch.float64):
         for lanes in ((), (8,)):
             s = torch.randn(lanes + (2, N_T, n), dtype=dtype, device="cuda", generator=gen)
-            Z = tr._packed_fft(s)
+            Z = torch.fft.fft(tp.pack(s), dim=-2)  # cuFFT's output, as the split reads it
             cdt = Z.dtype
             xi = torch.randn(lanes + (2, K, n), dtype=cdt, device="cuda", generator=gen)
+            z = torch.fft.ifft(tp.merge(xi, N_T), dim=-2, norm="forward")  # as the unpack reads it
             item = Z.element_size()
             B = lanes[0] if lanes else 1
-            nbytes = B * item * (N_T * n + 2 * K * n)  # either way: one read, one write
+            nbytes = {"split": B * item * (N_T * n + 2 * K * n),  # one read, one write
+                      "pack": B * item * 2 * N_T * n}
+            nbytes["merge"], nbytes["unpack"] = nbytes["split"], nbytes["pack"]
             before = {k: counters[k] for k in launch_counters}
-            checks = {"split": same(tp.split_reference(Z, N_T), tp.split(Z, N_T)),
-                      "merge": same(tp.merge_reference(xi, N_T), tp.merge(xi, N_T)),
+            packed = tp.pack(s)
+            checks = {"pack": same_values(tp.pack_reference(s), packed)
+                      and packed.stride()[-2] == (1 if B > 1 else n),  # the layout cuFFT's plan reads
+                      "pack_fft": same(torch.fft.fft(tp.pack_reference(s), dim=-2), torch.fft.fft(packed, dim=-2)),
+                      "split": same(tp.split_reference(Z, N_T), tp.split(Z, N_T)),
+                      "merge": same_values(tp.merge_reference(xi, N_T), tp.merge(xi, N_T)),
+                      "unpack": same(tp.unpack_reference(z, N_T), tp.unpack(z, N_T)),
                       "forward": same(tr._time_rfft_conj_packed_reference(s, N_T), tr.time_rfft_conj_packed(s, N_T)),
                       "inverse": same(tr._time_irfft_conj_packed_reference(xi, N_T),
                                       tr.time_irfft_conj_packed(xi, N_T))}
             moved = {k: counters[k] - v for k, v in before.items()}
             label = f"{str(dtype)[6:]}_b{B}"
             print(json.dumps({"phase": "time_pack_bitwise", "case": label, "split_lanes": tp.check_split(Z, N_T),
-                              "Z_strides": list(Z.stride()), **checks, "counted": moved}), flush=True)
+                              "Z_strides": list(Z.stride()), "packed_strides": list(packed.stride()), **checks,
+                              "counted": moved}), flush=True)
             if not all(checks.values()) or moved != {k: 2 for k in launch_counters}:
                 return f"time_pack {label}: not bitwise the twin, or launches miscounted: {checks} {moved}", None
-            bound = bounds[label] = roofline(nbytes, 0)
-            for name, fn in (("split", lambda: tp.split(Z, N_T)), ("split_twin", lambda: tp.split_reference(Z, N_T)),
-                             ("merge", lambda: tp.merge(xi, N_T)), ("merge_twin", lambda: tp.merge_reference(xi, N_T)),
-                             ("forward", lambda: tr.time_rfft_conj_packed(s, N_T)),
-                             ("forward_twin", lambda: tr._time_rfft_conj_packed_reference(s, N_T)),
-                             ("inverse", lambda: tr.time_irfft_conj_packed(xi, N_T)),
-                             ("inverse_twin", lambda: tr._time_irfft_conj_packed_reference(xi, N_T))):
-                cold = timed(torch, smi, flush, f"time_pack_{name}_{label}", fn, bytes=nbytes)
+            bounds[label] = {w: roofline(nbytes[w], 0) for w in ways}
+            if B > 1:  # torch's own copy to the plan's layout, which pack and merge now write
+                pack_replaced = lambda: tp.pack_reference(s).transpose(-1, -2).contiguous()  # noqa: E731
+            else:
+                pack_replaced = lambda: tp.pack_reference(s)  # noqa: E731
+            fns = {"pack": lambda: tp.pack(s), "pack_twin": lambda: tp.pack_reference(s),
+                   "pack_replaced": pack_replaced,
+                   "split": lambda: tp.split(Z, N_T), "split_twin": lambda: tp.split_reference(Z, N_T),
+                   "merge": lambda: tp.merge(xi, N_T), "merge_twin": lambda: tp.merge_reference(xi, N_T),
+                   "unpack": lambda: tp.unpack(z, N_T), "unpack_twin": lambda: tp.unpack_reference(z, N_T),
+                   "forward": lambda: tr.time_rfft_conj_packed(s, N_T),
+                   "forward_twin": lambda: tr._time_rfft_conj_packed_reference(s, N_T),
+                   "inverse": lambda: tr.time_irfft_conj_packed(xi, N_T),
+                   "inverse_twin": lambda: tr._time_irfft_conj_packed_reference(xi, N_T)}
+            for name, fn in fns.items():
+                way = name.split("_")[0]
+                cold = timed(torch, smi, flush, f"time_pack_{name}_{label}", fn, bytes=nbytes.get(way))
                 warm, _, _ = device_ms(torch, fn, None)
                 ms[f"{name}_{label}"], ms[f"{name}_{label}_warm"] = cold, warm
                 print(json.dumps({"timing": f"time_pack_{name}_{label}", "clock": "device", "l2": "warm",
                                   "median_ms": warm, "card": smi}), flush=True)
-                if name in ("split", "merge"):
-                    print(json.dumps({"phase": "time_pack_bound", "kernel": name, "case": label, "bytes": nbytes,
-                                      "cold_ms": cold, "warm_ms": warm, **bound,
+                if name in ways:
+                    bound = bounds[label][name]
+                    print(json.dumps({"phase": "time_pack_bound", "kernel": name, "case": label,
+                                      "bytes": nbytes[name], "cold_ms": cold, "warm_ms": warm, **bound,
                                       "share_cold": bound["bound_ms"] / cold}), flush=True)
-            del s, Z, xi
+            del s, Z, xi, z, packed
 
-    # the float32 headline direct solves: the kernels, the twin's glue, two rffts
+    # the float32 headline direct solves and the 2D heat cell's: the kernels,
+    # the eager composition before them, two rffts
     wave = WaveControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float32), device="cuda")
     heat = HeatControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float32), device="cuda")
-    heat_b = torch.stack([heat.rhs * (1.0 + 0.125 * i) for i in range(8)])
+    heat2d = HeatControlProblem(ProblemConfig(**HEAT_2D, dtype=torch.float32), device="cuda")
     cases = {"wave_single": (wave.rhs, cw.build_cuda_woodbury_solver(wave.operator),
                              cw.build_cuda_woodbury_solver(wave.operator, pack_fft=False)),
-             "heat_b8": (heat_b, ch.build_cuda_heat_solver(heat), ch.build_cuda_heat_solver(heat, pack_fft=False))}
+             "heat_b8": (torch.stack([heat.rhs * (1.0 + 0.125 * i) for i in range(8)]),
+                         ch.build_cuda_heat_solver(heat), ch.build_cuda_heat_solver(heat, pack_fft=False)),
+             "heat2d_b8": (torch.stack([heat2d.rhs * (1.0 + 0.125 * i) for i in range(8)]),
+                           ch.build_cuda_heat_solver(heat2d), ch.build_cuda_heat_solver(heat2d, pack_fft=False))}
     per_solve = {}
     for name, (b, packed, rffts) in cases.items():
         for k in launch_counters:
             counters[k] = 0
         x = packed(b)
         per_solve[name] = {k: counters[k] for k in launch_counters}
-        with twin_glue[0], twin_glue[1]:
-            x_twin = packed(b)
-            glue_launches = kernel_launches(lambda: packed(b))
+        patches = eager()
+        with patches[0], patches[1]:
+            x_eager = packed(b)
+            eager_launches = kernel_launches(lambda: packed(b))
         if per_solve[name] != {k: 1 for k in launch_counters}:
-            return f"the {name} solve did not launch one split and one merge: {per_solve[name]}", None
-        if not same(x_twin, x):
-            return f"the {name} solve through the kernels is not bitwise the twin's", None
+            return f"the {name} solve did not launch one of each time_pack kernel: {per_solve[name]}", None
+        if not same(x_eager, x):
+            return f"the {name} solve through the kernels is not bitwise the eager composition's", None
         fns = {"kernels": lambda: packed(b), "rffts": lambda: rffts(b)}
         launches = {k: kernel_launches(f) for k, f in fns.items()}
-        launches["twin_glue"] = glue_launches
+        launches["eager"] = eager_launches
         device = {k: timed(torch, smi, flush, f"time_pack_solve_{name}_{k}", f) for k, f in fns.items()}
-        with twin_glue[0], twin_glue[1]:
-            device["twin_glue"] = timed(torch, smi, flush, f"time_pack_solve_{name}_twin_glue", lambda: packed(b))
-        walls = {k: [] for k in ("kernels", "twin_glue", "rffts")}
-        for _ in range(3):  # in turns: kernels, twin glue, rffts
+        patches = eager()
+        with patches[0], patches[1]:
+            device["eager"] = timed(torch, smi, flush, f"time_pack_solve_{name}_eager", lambda: packed(b))
+        walls = {k: [] for k in ("kernels", "eager", "rffts")}
+        for _ in range(3):  # in turns: kernels, eager composition, rffts
             for k in walls:
-                if k == "twin_glue":
-                    with twin_glue[0], twin_glue[1]:
+                if k == "eager":
+                    patches = eager()
+                    with patches[0], patches[1]:
                         walls[k].append(wall_ms(torch, lambda: packed(b))[0])
                 else:
                     walls[k].append(wall_ms(torch, fns[k])[0])
@@ -2213,9 +2251,10 @@ def time_pack_phases(torch, smi, flush):
                           "device_ms_l2_cold": device, "host_wall_ms": {k: statistics.median(v)
                                                                          for k, v in walls.items()},
                           "kernel_launches": launches, "counted": per_solve[name], "card": smi}), flush=True)
+        del b, x, x_eager
 
     def entry(way, kernel, replaces):
-        return {
+        e = {
             "name": f"time_pack_{way}_cuda",
             "route": "cuda",
             "source": "optimal_control_paradiag_torch/csrc/time_pack.cu",
@@ -2224,20 +2263,31 @@ def time_pack_phases(torch, smi, flush):
             "replaces_kind": "eager jnp glue around the FFT, which XLA fuses, not a pl.pallas_call",
             "launches": per_solve["wave_single"][f"time_pack.{way}.launches"],
             "launches_heat_b8": per_solve["heat_b8"][f"time_pack.{way}.launches"],
+            "launches_heat2d_b8": per_solve["heat2d_b8"][f"time_pack.{way}.launches"],
             "max_abs_err": 0.0,  # bitwise the twin
             "ms": ms[f"{way}_float32_b1"],
             "warm_ms": ms[f"{way}_float32_b1_warm"],
             "plain_ms": ms[f"{way}_twin_float32_b1"],
-            **bounds["float32_b1"],
+            **bounds["float32_b1"][way],
             "library_ms": None,
             "ms_b8": ms[f"{way}_float32_b8"],
-            "bound_ms_b8": bounds["float32_b8"]["bound_ms"],
+            "warm_ms_b8": ms[f"{way}_float32_b8_warm"],
+            "bound_ms_b8": bounds["float32_b8"][way]["bound_ms"],
             "ms_f64": ms[f"{way}_float64_b1"],
-            "bound_ms_f64": bounds["float64_b1"]["bound_ms"],
+            "bound_ms_f64": bounds["float64_b1"][way]["bound_ms"],
         }
+        if way == "pack":  # torch.complex, and at B > 1 torch's copy to the plan's layout
+            e["replaced_ms"], e["replaced_ms_b8"] = ms["pack_replaced_float32_b1"], ms["pack_replaced_float32_b8"]
+        if way == "unpack":  # the normalisation's mul_ and the stack: the twin itself
+            e["replaced_ms"], e["replaced_ms_b8"] = ms["unpack_twin_float32_b1"], ms["unpack_twin_float32_b8"]
+        return e
 
     return None, [entry("split", "T1 time_pack_split_kernel", "optimal_control_paradiag_tpu/ops/transforms.py:282"),
-                  entry("merge", "T2 time_pack_merge_kernel", "optimal_control_paradiag_tpu/ops/transforms.py:295")]
+                  entry("merge", "T2 time_pack_merge_rows_kernel / time_pack_merge_tiles_kernel",
+                        "optimal_control_paradiag_tpu/ops/transforms.py:295"),
+                  entry("pack", "T3 time_pack_pack_rows_kernel / time_pack_pack_tiles_kernel",
+                        "optimal_control_paradiag_tpu/ops/transforms.py:282"),
+                  entry("unpack", "T4 time_pack_unpack_kernel", "optimal_control_paradiag_tpu/ops/transforms.py:295")]
 
 
 def b3_library(torch, b3, a, b_hi, b_lo):

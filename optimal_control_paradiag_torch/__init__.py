@@ -10,8 +10,8 @@ the spectral solve as one hand-written CUDA kernel per family:
 - heat control, rank 2, 1D or 2D lumped mass (``paradiag/cuda_heat.py``,
   ``csrc/heat_woodbury.cu``).
 
-Around it, the packed time FFT's split and merge are one hand-written kernel
-each way (``ops/time_pack.py``, ``csrc/time_pack.cu``).
+Around cuFFT, the packed time FFT's pack and split, and merge and unpack,
+are hand-written kernels (``ops/time_pack.py``, ``csrc/time_pack.cu``).
 
     WaveControlProblem(ProblemConfig(N_x=2048, N_t=1024, dtype=torch.float32)).solve(
         SolverConfig(method="woodbury", use_pallas=True))

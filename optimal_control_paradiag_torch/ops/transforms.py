@@ -12,8 +12,8 @@ families, all with the numpy fft conventions of the JAX package:
 - **two-for-one ("packed")**: the half-spectrum pipeline transforms a REAL
   pair (u, p); packing z = u + i p runs ONE complex FFT over the time axis
   instead of two real rffts, and the two half-spectra split out by
-  Hermitian symmetry (the split and the merge: ``ops/time_pack.py``, a
-  hand-written CUDA kernel each on the card).
+  Hermitian symmetry (the pack, split, merge and unpack around cuFFT:
+  ``ops/time_pack.py``, a hand-written CUDA kernel each on the card).
 
 Conventions of the half-spectrum transforms (c in {u, p}):
 
@@ -305,27 +305,37 @@ def _packed_ifft(Z: torch.Tensor) -> torch.Tensor:
 def time_rfft_conj_packed(s: torch.Tensor, N: int) -> torch.Tensor:
     """``conj(rfft(s, axis=-2))/N`` of a real ``(..., 2, N, n)`` pair via one
     packed complex FFT; returns a contiguous ``(..., 2, K, n)`` complex
-    tensor. The split after the FFT is ``ops.time_pack.split``: its CUDA
-    kernel on the card, bitwise :func:`_time_rfft_conj_packed_reference`."""
-    return time_pack.split(_packed_fft(s), N)
+    tensor. On the card three launches: ``ops.time_pack.pack`` writes the
+    buffer cuFFT's plan reads, cuFFT, ``ops.time_pack.split`` (``s`` is
+    made contiguous first, a copy only where the sine transform left it
+    strided); bitwise :func:`_time_rfft_conj_packed_reference`, which the
+    CPU runs."""
+    if s.device.type != "cuda":
+        return _time_rfft_conj_packed_reference(s, N)
+    return time_pack.split(torch.fft.fft(time_pack.pack(s.contiguous()), dim=-2), N)
 
 
 def time_irfft_conj_packed(xi: torch.Tensor, N: int) -> torch.Tensor:
     """``irfft(conj(xi_c), n=N, axis=-2) * N`` for the ``(..., 2, K, n)``
-    pair via one packed complex inverse FFT; returns the real
-    ``(..., 2, N, n)`` pair. The merge before the FFT is
-    ``ops.time_pack.merge``: its CUDA kernel on the card, bitwise
-    :func:`_time_irfft_conj_packed_reference`."""
-    return _packed_ifft(time_pack.merge(xi, N))
+    pair via one packed complex inverse FFT; returns the contiguous real
+    ``(..., 2, N, n)`` pair. On the card three launches:
+    ``ops.time_pack.merge`` writes the buffer cuFFT's plan reads, cuFFT
+    unnormalised, ``ops.time_pack.unpack`` (the 1/N and the real pair);
+    bitwise :func:`_time_irfft_conj_packed_reference`, which the CPU runs."""
+    if xi.device.type != "cuda":
+        return _time_irfft_conj_packed_reference(xi, N)
+    return time_pack.unpack(torch.fft.ifft(time_pack.merge(xi, N), dim=-2, norm="forward"), N)
 
 
 def _time_rfft_conj_packed_reference(s: torch.Tensor, N: int) -> torch.Tensor:
-    """:func:`time_rfft_conj_packed` in plain PyTorch on every device: the
-    FFT and the eager split (``time_pack.split_reference``)."""
+    """:func:`time_rfft_conj_packed` in plain PyTorch on every device:
+    ``torch.complex``, the FFT and the eager split
+    (``time_pack.split_reference``)."""
     return time_pack.split_reference(_packed_fft(s), N)
 
 
 def _time_irfft_conj_packed_reference(xi: torch.Tensor, N: int) -> torch.Tensor:
     """:func:`time_irfft_conj_packed` in plain PyTorch on every device: the
-    eager merge (``time_pack.merge_reference``) and the FFT."""
+    eager merge (``time_pack.merge_reference``), the normalised inverse FFT
+    and ``stack``."""
     return _packed_ifft(time_pack.merge_reference(xi, N))

@@ -246,8 +246,8 @@ def make_halfspectrum_transforms(
         x  = idst(irfft(conj(xi)) * N_t)             (..., 2, N_t, n) real
 
     ``time_transform``: 'fft' (two real rffts), 'fft2' (one packed complex
-    FFT, ``ops.transforms.time_rfft_conj_packed``; on the card its split and
-    merge are the kernels of ``ops/time_pack.py``), 'dft' (the rfft/irfft
+    FFT, ``ops.transforms.time_rfft_conj_packed``; on the card the kernels
+    of ``ops/time_pack.py`` are all that runs around cuFFT), 'dft' (the rfft/irfft
     as split-real matmuls with K x N_t cos/sin matrices, the pairing weights
     folded into the inverse's) or 'mxu' (the four-step factorization,
     ``ops.transforms.FourStepPlan``; a prime N_t has no radix split and
@@ -310,7 +310,7 @@ def make_halfspectrum_transforms(
 
     elif time_transform == "fft2":
         if dev.type == "cuda":
-            time_pack.kernel_library()  # the split and merge kernels build here, at set-up
+            time_pack.kernel_library()  # the time_pack kernels build here, at set-up
 
         def to_spectral(x):
             s = sp.dst(x)
