@@ -33,7 +33,7 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
    started with a cold L2 cache; both kernels warm too); with the slab
    kernel's profile variant (``-DWOODBURY_PROFILE``) print the median
    clock64 cycles of each phase of a block (copies, passes, store);
-6. print the heat schedule (``heat_schedule``) of both heat shapes in
+6. print the heat schedule (``fused.schedule``) of both heat shapes in
    float32 and float64: the slab kernel at each;
 7. hold the heat slab kernel and the heat streaming kernel against their
    plain twin at both heat shapes (1D, K = 513, n = 2047; 2D lumped, K = 33,
@@ -238,7 +238,7 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     each way, kernels and the eager composition before them; and the
     float32 direct solves of the headline (wave single, heat B = 8) and of
     the 2D heat cell (B = 8) with the kernels, with the eager composition
-    and with two real rffts (``pack_fft=False``), each timed (device, L2
+    and with two real rffts (:func:`rfft_solver`), each timed (device, L2
     cold; host wall, in turns), bitwise against the eager composition, with
     the counters held to one launch of each kernel per solve, and with the
     kernel launches of a ``torch.profiler`` trace printed (not held: after
@@ -498,20 +498,34 @@ def block_profile(torch, launch, read, blocks: int) -> dict:
             **{f"{k}_cycles": float(np.median(steps[:, j])) for j, k in enumerate(names)}}
 
 
+def streaming(kernel):
+    """The family's streaming kernel at any shape, through the shared
+    launch: the yardstick the slab kernel is held against. No solver
+    reaches it."""
+    from optimal_control_paradiag_torch.paradiag import fused
+
+    return lambda b_hat, c, refine: fused.launch(
+        kernel, b_hat, c, refine, fused.streaming_schedule(kernel, c.a11r.element_size()))
+
+
+def rfft_solver(space, N_t: int, dtype, fused_fn, consts):
+    """A direct solve with the fused kernel ``fused_fn`` between two real
+    rffts (``time_transform='fft'``) instead of the packed FFT: the
+    candidate the packed FFT is measured against."""
+    from optimal_control_paradiag_torch.paradiag.spectral import make_halfspectrum_transforms
+
+    to_spectral, from_spectral = make_halfspectrum_transforms(space, N_t, dtype, time_transform="fft")
+    return lambda b: from_spectral(fused_fn(to_spectral(b), consts, 1))
+
+
 def slab_profile(torch, cw, lib, b_hat, consts, sched) -> dict:
     """The wave slab kernel's block profile (``-DWOODBURY_PROFILE`` build of
     ``csrc/woodbury.cu``) on the main path's input."""
-    from optimal_control_paradiag_torch.cuda_build import launch_fused_solve
+    from optimal_control_paradiag_torch.paradiag import fused
 
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.woodbury_slab_f32.argtypes = [p] * 8 + [i] * 9 + [p]
-    lib.woodbury_slab_f32.restype = i
-    lib.woodbury_error_string.argtypes = [i]
-    lib.woodbury_error_string.restype = ctypes.c_char_p
-    lib.woodbury_profile_read.argtypes = [p]
-    launch = lambda: launch_fused_solve(
-        "woodbury_slab", {torch.float32: lib.woodbury_slab_f32}, lib.woodbury_error_string, b_hat, consts,
-        cw._CONST_SHAPES, 1, (sched.cols, sched.lanes, sched.stride, sched.smem_bytes))
+    lib = fused.declare_library(cw.KERNEL, lib)
+    lib.woodbury_profile_read.argtypes = [ctypes.c_void_p]
+    launch = lambda: fused.launch(cw.KERNEL, b_hat, consts, 1, sched, lib)
     return block_profile(torch, launch, lib.woodbury_profile_read, -(-consts.a11r.shape[1] // sched.cols))
 
 
@@ -768,8 +782,9 @@ def transform_phases(torch, smi, flush, headline):
             timed_("time_roundtrip_mxu", lambda: time_irfft_conj_mm4(time_rfft_conj_mm4(s, plan4), plan4))
             for tt in ("fft", "mxu"):
                 cands[f"plain_{tt}"] = (wp, build_woodbury_solver(wp.operator, time_transform=tt))
-            # B1 between two real rffts instead of the packed FFT (pack_fft=False)
-            cands["cuda_kernel_rfft_dst_matmul"] = (wp, cw.build_cuda_woodbury_solver(wp.operator, pack_fft=False))
+            # B1 between two real rffts instead of the packed FFT
+            cands["cuda_kernel_rfft_dst_matmul"] = (wp, rfft_solver(wp.space, N_T, torch.float32, cw.fused_woodbury,
+                                                                    cw.pack_constants(wp.operator)))
         elif dst_method == "fft":
             cands["cuda_kernel_dst_fft"] = (wp, wp.make_solver_fn(SolverConfig(method="woodbury", use_pallas=True)))
             cands["cuda_kernel_dst_fft_polish1"] = (
@@ -1097,7 +1112,7 @@ def batched_phases(torch, smi, flush):
         if family == "wave":
             prob = WaveControlProblem(cfg, device=DEVICE)
             consts = cw.pack_constants(prob.operator)
-            kernels = {"slab": cw.fused_woodbury, "streaming": cw._fused_woodbury_streaming}
+            kernels = {"slab": cw.fused_woodbury, "streaming": streaming(cw.KERNEL)}
             twin, counter, tol, gate = cw.fused_woodbury_reference, "b1.launches", TOL_F32, MAX_REL_RESIDUAL
             wb = SolverConfig(method="woodbury", use_pallas=True)
             batched = lambda b, f=prob.make_batched_solver_fn(wb): f(b)[0]
@@ -1110,7 +1125,7 @@ def batched_phases(torch, smi, flush):
         else:
             prob = HeatControlProblem(cfg, device=DEVICE)
             consts = ch.pack_heat_constants(prob)
-            kernels = {"slab": ch.fused_heat, "streaming": ch._fused_heat_streaming}
+            kernels = {"slab": ch.fused_heat, "streaming": streaming(ch.KERNEL)}
             twin, counter, tol, gate = ch.fused_heat_reference, "b2.launches", HEAT_TOL_F32, HEAT_MAX_REL_RESIDUAL
             batched = single = ch.build_cuda_heat_solver(prob)  # the builder takes (2, N_t, n) or a batch
             plain = prob.build_woodbury_solver()
@@ -2211,12 +2226,16 @@ def time_pack_phases(torch, smi, flush):
     wave = WaveControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float32), device="cuda")
     heat = HeatControlProblem(ProblemConfig(N_x=N_X, N_t=N_T, dtype=torch.float32), device="cuda")
     heat2d = HeatControlProblem(ProblemConfig(**HEAT_2D, dtype=torch.float32), device="cuda")
+    def rffts(p):
+        return rfft_solver(p.space, p.config.N_t, torch.float32, ch.fused_heat, ch.pack_heat_constants(p))
+
     cases = {"wave_single": (wave.rhs, cw.build_cuda_woodbury_solver(wave.operator),
-                             cw.build_cuda_woodbury_solver(wave.operator, pack_fft=False)),
+                             rfft_solver(wave.space, N_T, torch.float32, cw.fused_woodbury,
+                                         cw.pack_constants(wave.operator))),
              "heat_b8": (torch.stack([heat.rhs * (1.0 + 0.125 * i) for i in range(8)]),
-                         ch.build_cuda_heat_solver(heat), ch.build_cuda_heat_solver(heat, pack_fft=False)),
+                         ch.build_cuda_heat_solver(heat), rffts(heat)),
              "heat2d_b8": (torch.stack([heat2d.rhs * (1.0 + 0.125 * i) for i in range(8)]),
-                           ch.build_cuda_heat_solver(heat2d), ch.build_cuda_heat_solver(heat2d, pack_fft=False))}
+                           ch.build_cuda_heat_solver(heat2d), rffts(heat2d))}
     per_solve = {}
     for name, (b, packed, rffts) in cases.items():
         for k in launch_counters:
@@ -2691,6 +2710,7 @@ def main() -> int:
     )
     from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
     from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
+    from optimal_control_paradiag_torch.paradiag import fused
     from optimal_control_paradiag_torch.paradiag.spectral import (
         _capacity_matrices,
         build_polished_solver,
@@ -2754,13 +2774,13 @@ def main() -> int:
     variants = {"b3_profile": start_variant(b3.WGMMA_SOURCE, "BF16X3_PROFILE")}
     if not b3_only:
         variants.update({
-            "woodbury_profile": start_variant(cw.KERNEL_SOURCE, "WOODBURY_PROFILE"),
-            "heat_profile": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PROFILE"),
-            "heat_profile_skip_b": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PROFILE", "HEAT_WOODBURY_SKIP_B"),
-            "heat_planes": start_variant(ch.KERNEL_SOURCE, "HEAT_WOODBURY_PLANES")})
+            "woodbury_profile": start_variant(cw.KERNEL.source, "WOODBURY_PROFILE"),
+            "heat_profile": start_variant(ch.KERNEL.source, "HEAT_WOODBURY_PROFILE"),
+            "heat_profile_skip_b": start_variant(ch.KERNEL.source, "HEAT_WOODBURY_PROFILE", "HEAT_WOODBURY_SKIP_B"),
+            "heat_planes": start_variant(ch.KERNEL.source, "HEAT_WOODBURY_PLANES")})
     from optimal_control_paradiag_torch.ops import time_pack as tp
 
-    sources = (cw.KERNEL_SOURCE, ch.KERNEL_SOURCE, b3.KERNEL_SOURCE, b3.WGMMA_SOURCE, tp.KERNEL_SOURCE)
+    sources = (cw.KERNEL.source, ch.KERNEL.source, b3.KERNEL_SOURCE, b3.WGMMA_SOURCE, tp.KERNEL_SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(zip(sources, pool.map(load_library, sources)))
     for source, built in builds:
@@ -2783,15 +2803,15 @@ def main() -> int:
     consts = cw.pack_constants(op)
     K, n = consts.a11r.shape
     b_hat = time_rfft_conj_packed(prob.space.dst(prob.rhs), N_T)  # the main path's kernel input
-    kernels = {"slab": cw.fused_woodbury, "streaming": cw._fused_woodbury_streaming}
+    kernels = {"slab": cw.fused_woodbury, "streaming": streaming(cw.KERNEL)}
     for itemsize in (4, 8):
-        sched = cw.woodbury_schedule(K, n, itemsize)
+        sched = fused.schedule(cw.KERNEL, K, n, itemsize)
         print(json.dumps({"phase": "woodbury_schedule", "K": K, "n": n, "itemsize": itemsize,
                           **dataclasses.asdict(sched), "blocks": -(-n // sched.cols)}), flush=True)
         if sched.kind != "slab":
             return fail(f"the main path's shape takes the {sched.kind} schedule, not the slab")
     x_kernel = cw.fused_woodbury(b_hat, consts, 1)
-    x_stream = cw._fused_woodbury_streaming(b_hat, consts, 1)
+    x_stream = streaming(cw.KERNEL)(b_hat, consts, 1)
     torch.cuda.synchronize()
     x_twin = cw.fused_woodbury_reference(b_hat, consts, 1)
     max_abs_err = (x_kernel - x_twin).abs().max().item()
@@ -2821,7 +2841,7 @@ def main() -> int:
     plong = WaveControlProblem(ProblemConfig(N_x=8, N_t=10000, T=20.0, dtype=torch.float64), device="cuda")
     with unittest.mock.patch.object(cw, "_real_capacity_matrices", lambda pl: _capacity_matrices(pl).real):
         clong = cw.pack_constants(plong.operator)
-    sched = cw.woodbury_schedule(*clong.a11r.shape, 8)
+    sched = fused.schedule(cw.KERNEL, *clong.a11r.shape, 8)
     print(json.dumps({"phase": "woodbury_schedule", "K": clong.a11r.shape[0], "n": clong.a11r.shape[1],
                       "itemsize": 8, **dataclasses.asdict(sched)}), flush=True)
     if sched.kind != "streaming":
@@ -2891,7 +2911,7 @@ def main() -> int:
     rhs = prob.rhs
     s = prob.space.dst(rhs)
     # the slab narrowed to two columns per block, so that two blocks fit on an SM
-    two = cw.slab_schedule(K, 2, 4)
+    two = fused.slab_schedule(cw.KERNEL, K, 2, 4)
     if not 2 * (two.smem_bytes + 1024) <= 228 * 1024:
         return fail(f"the C = 2 slab takes {two.smem_bytes} B: two blocks no longer fit on an SM")
     print(json.dumps({"phase": "woodbury_schedule", "K": K, "n": n, "itemsize": 4,
@@ -2900,8 +2920,8 @@ def main() -> int:
         "solve_cuda_kernel": lambda: solve_fn(rhs),
         "solve_plain_torch": lambda: plain_fn(rhs),
         "woodbury_kernel": lambda: cw.fused_woodbury(b_hat, consts, 1),
-        "woodbury_kernel_streaming": lambda: cw._fused_woodbury_streaming(b_hat, consts, 1),
-        "woodbury_kernel_two_per_sm": lambda: cw._launch(b_hat, consts, 1, two),
+        "woodbury_kernel_streaming": lambda: streaming(cw.KERNEL)(b_hat, consts, 1),
+        "woodbury_kernel_two_per_sm": lambda: fused.launch(cw.KERNEL, b_hat, consts, 1, two),
         "woodbury_twin": lambda: cw.fused_woodbury_reference(b_hat, consts, 1),
         "dst_matmul": lambda: prob.space.dst(rhs),
         "packed_fft_roundtrip": lambda: time_irfft_conj_packed(time_rfft_conj_packed(s, N_T), N_T),
@@ -2913,10 +2933,10 @@ def main() -> int:
         ms[name] = med
         print(json.dumps({"timing": name, "clock": "device", "l2": "cold", "median_ms": med, "min_ms": lo,
                           "max_ms": hi, "runs": RUNS, "card": smi}), flush=True)
-    print(json.dumps({"phase": "slab_profile", "K": K, "n": n, "dtype": "float32", **dataclasses.asdict(cw.woodbury_schedule(K, n, 4)),
+    print(json.dumps({"phase": "slab_profile", "K": K, "n": n, "dtype": "float32", **dataclasses.asdict(fused.schedule(cw.KERNEL, K, n, 4)),
                       "sms": torch.cuda.get_device_properties(0).multi_processor_count,
                       **slab_profile(torch, cw, finish_variant(variants["woodbury_profile"]), b_hat, consts,
-                                     cw.woodbury_schedule(K, n, 4))}), flush=True)
+                                     fused.schedule(cw.KERNEL, K, n, 4))}), flush=True)
     for name in ("woodbury_kernel", "woodbury_kernel_streaming"):
         med, lo, hi = device_ms(torch, timings[name], None)
         ms[name + "_warm"] = med
@@ -2951,7 +2971,7 @@ def main() -> int:
     # 6-7. both heat kernels vs the twin at both heat shapes, refine = 1 (the
     # main path), with the schedule each dtype takes
     heat = {}
-    heat_kernels = {"slab": ch.fused_heat, "streaming": ch._fused_heat_streaming}
+    heat_kernels = {"slab": ch.fused_heat, "streaming": streaming(ch.KERNEL)}
     for label, shape in (("1d", HEAT_1D), ("2d", HEAT_2D)):
         p32 = HeatControlProblem(ProblemConfig(**shape, dtype=torch.float32), device="cuda")
         p64 = HeatControlProblem(ProblemConfig(**shape, dtype=torch.float64), device="cuda")
@@ -3069,7 +3089,7 @@ def main() -> int:
         return fail(f"wave polish=1 residual {rel_pol:.3e} above {MAX_REL_RESIDUAL} or the polish=0 {wave_rel:.3e}")
 
     # 12. timings of the heat and polished paths, and of the heat kernels
-    planes = ch._declare(finish_variant(variants["heat_planes"]))  # constants loaded from the (K, n) planes
+    planes = fused.declare_library(ch.KERNEL, finish_variant(variants["heat_planes"]))  # constants loaded from the (K, n) planes
     wave_pol_fn = wave_prob.make_solver_fn(pol_cfg)
     wrhs = wave_prob.rhs
     timings = {
@@ -3086,8 +3106,8 @@ def main() -> int:
             f"heat_{label}_solve_plain_torch": lambda f=fns[1], b=hp.rhs: f(b),
             f"heat_{label}_solve_polished": lambda f=fns[2], b=hp.rhs: f(b),
             f"heat_{label}_kernel": lambda b=hb, c=hc: ch.fused_heat(b, c, 1),
-            f"heat_{label}_kernel_streaming": lambda b=hb, c=hc: ch._fused_heat_streaming(b, c, 1),
-            f"heat_{label}_kernel_planes": lambda b=hb, c=hc: ch._launch(b, c, 1, c.schedule, planes),
+            f"heat_{label}_kernel_streaming": lambda b=hb, c=hc: streaming(ch.KERNEL)(b, c, 1),
+            f"heat_{label}_kernel_planes": lambda b=hb, c=hc: fused.launch(ch.KERNEL, b, c, 1, c.schedule, planes),
             f"heat_{label}_twin": lambda b=hb, c=hc: ch.fused_heat_reference(b, c, 1),
             f"heat_{label}_dst_matmul": lambda sp=hp.space, b=hp.rhs: sp.dst(b),
             f"heat_{label}_packed_fft_roundtrip": lambda t=hp.space.dst(hp.rhs), N=hp.config.N_t: (
@@ -3110,13 +3130,13 @@ def main() -> int:
     # out (its x is wrong: it times the sweep without b's copies)
     hprofs = {}
     for build in ("heat_profile", "heat_profile_skip_b"):
-        hprofs[build] = ch._declare(finish_variant(variants[build]))
+        hprofs[build] = fused.declare_library(ch.KERNEL, finish_variant(variants[build]))
         hprofs[build].heat_woodbury_profile_read.argtypes = [ctypes.c_void_p]
     for label, build in itertools.product(("1d", "2d"), hprofs):
         _, hc, hb, _ = heat[label]
         hK, hn = hc.a11r.shape
         lib = hprofs[build]
-        prof = block_profile(torch, lambda b=hb, c=hc, lib=lib: ch._launch(b, c, 1, c.schedule, lib),
+        prof = block_profile(torch, lambda b=hb, c=hc, lib=lib: fused.launch(ch.KERNEL, b, c, 1, c.schedule, lib),
                              lib.heat_woodbury_profile_read, -(-hn // hc.schedule.cols))
         print(json.dumps({"phase": "heat_slab_profile" + build[len("heat_profile"):], "shape": label, "K": hK,
                           "n": hn, "dtype": "float32", **dataclasses.asdict(hc.schedule),

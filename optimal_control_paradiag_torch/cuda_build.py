@@ -1,4 +1,5 @@
-"""Build, load and launch the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels, and the launch
+convention every wrapper of them keeps.
 
 Each ``csrc/*.cu`` file exposes a plain ``extern "C"`` launcher. It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library, cached in
@@ -7,8 +8,10 @@ unless ``PARADIAG_COMPILE_CACHE`` says otherwise) by a hash of the source
 and the flags, and loaded with
 ``ctypes``. Nothing here runs at import: the first call that launches a
 kernel builds it, so the package imports on machines without ``nvcc``.
-A failed build raises; there is no fallback. :func:`launch_fused_solve`
-checks a fused solve's tensors before their pointers reach a kernel.
+A failed build raises; there is no fallback. A wrapper declares its
+launchers' signatures with :func:`declare`, launches on the raw stream of
+:func:`device_and_stream` and raises a launcher's error code through
+:func:`check`.
 """
 
 from __future__ import annotations
@@ -126,60 +129,9 @@ def check(lib: ctypes.CDLL, what: str, err: int) -> None:
 
 def device_and_stream(t: torch.Tensor) -> Tuple[int, int]:
     """A CUDA tensor's device index and the raw handle of that device's
-    current stream (``torch.cuda.current_stream(...).cuda_stream`` would
-    build a Stream object on every call, the larger part of a wrapper's
-    host time)."""
+    current stream (taking ``cuda_stream`` of ``torch.cuda.current_stream``
+    would build a Stream object on every call, the larger part of a
+    wrapper's host time)."""
     index = t.get_device()
     return index, torch._C._cuda_getCurrentRawStream(index)
 
-
-# The lanes of a batched launch ride the grid's y axis (gridDim.y <= 65535).
-MAX_BATCH = 65535
-
-
-def launch_fused_solve(name: str, fns, error_string, b_hat, consts, shapes, refine: int, extra=()):
-    """Check the arguments of a fused half-spectrum solve and launch it.
-
-    ``b_hat`` must be a contiguous, resolved (2, K, n) or (B, 2, K, n)
-    complex CUDA tensor, 1 <= B <= :data:`MAX_BATCH` (the lanes ride the
-    grid's y axis and share the constants); each constant (a field of the
-    ``consts`` dataclass named in ``shapes``, in the kernel's argument order)
-    contiguous, of the matching real dtype, on the same device and of its
-    shape, with K, n taken from the first constant; ``refine`` a
-    non-negative int. ``fns`` maps the real dtype to the ctypes launcher,
-    ``error_string`` turns its return code into text; ``extra`` ints (a
-    kernel's schedule) follow ``refine`` in the launcher's arguments.
-    Returns x, of b_hat's shape: one launch for the whole batch; a refused
-    or failed launch raises."""
-    real = {torch.complex64: torch.float32, torch.complex128: torch.float64}.get(b_hat.dtype)
-    K, n = getattr(consts, next(iter(shapes))).shape
-    lane_shape = tuple(b_hat.shape[-3:])
-    batched = b_hat.dim() == 4
-    if (real is None or lane_shape != (2, K, n) or b_hat.dim() not in (3, 4) or not b_hat.is_contiguous()
-            or b_hat.is_conj()):
-        raise ValueError(
-            f"b_hat must be a contiguous, resolved (2, {K}, {n}) or (B, 2, {K}, {n}) complex tensor; "
-            f"got {tuple(b_hat.shape)} {b_hat.dtype}"
-        )
-    batch = b_hat.shape[0] if batched else 1
-    if not 1 <= batch <= MAX_BATCH:
-        raise ValueError(f"a batched launch takes 1 to {MAX_BATCH} lanes (the grid's y axis); got B = {batch}")
-    ptrs = []
-    for field, shape in shapes.items():
-        t = getattr(consts, field)
-        if t.dtype != real or t.device != b_hat.device or not t.is_contiguous():
-            raise ValueError(f"constant {field} must be contiguous {real} on {b_hat.device}")
-        if tuple(t.shape) != tuple(K if d == "K" else n if d == "n" else d for d in shape):
-            raise ValueError("packed constants have inconsistent shapes")
-        ptrs.append(t.data_ptr())
-    if not isinstance(refine, int) or refine < 0:
-        raise ValueError(f"refine must be a non-negative int, got {refine!r}")
-    x = torch.empty_like(b_hat)
-    device = b_hat.device.index if b_hat.device.index is not None else torch.cuda.current_device()
-    err = fns[real](
-        b_hat.data_ptr(), x.data_ptr(), *ptrs, K, n, batch, refine, *extra, device,
-        torch.cuda.current_stream(b_hat.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: {error_string(err).decode()} ({err})")
-    return x

@@ -9,23 +9,21 @@ operator A_hat = D + (m1 uN, m1 p1) injected and a second Woodbury pass. The
 kernel (``csrc/heat_woodbury.cu``) does all of it, ``b_hat -> x``, in one
 launch; its source comment gives the design.
 
-``csrc/heat_woodbury.cu`` holds two kernels for the same function, and
-:func:`heat_schedule` picks one from the shape: the slab kernel, which keeps
-all K bins of C adjacent columns in shared memory, so reads b and the
-constants from device memory once and writes x once, and brings in each
-block's constants with one bulk copy from an image packed for it; and, for K too
-long for even one column's slab, the streaming kernel, which passes over K
-2 + 2·refine times.
+``csrc/heat_woodbury.cu`` holds the slab and the streaming kernel of
+:mod:`paradiag.fused`, which holds what the wave family shares: the
+schedule rule, the argument checks, the launch and the direct solver. The
+heat slab kernel brings in each block's constants with one bulk copy from
+an image packed for it. This module holds what is the heat family's own,
+in the order the solve uses it:
 
-The pieces, in the order the solve uses them:
-
+- :data:`KERNEL`: the source as ``fused`` launches it, with the slab's
+  shared memory (:func:`_heat_slab_bytes`);
 - :func:`pack_heat_constants`: a11r, a11i, invdet per (k, j) from the
   float64 host plan, the per-column rows m1, tm1, G00, G01, G10, G11 and the
   phases, in the working dtype on the problem's device; the schedule of the
   shape; and the slab kernel's copies, laid out as it keeps them in shared
   memory: the phase table padded per bin, and a11r, a11i, invdet in one
   image chunk per block (:func:`_slab_image`);
-- :func:`heat_schedule`: the schedule rule, pure arithmetic on the shape;
 - :func:`fused_heat`: the wrapper, one ``fused/b2`` span. On a CUDA tensor
   it launches the kernel the constants' schedule names (and counts the
   launch in ``utils.timing.counters['b2.launches']``, and by kind in
@@ -38,31 +36,22 @@ The pieces, in the order the solve uses them:
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
-from typing import Callable, Optional
+from typing import Callable
 
 import numpy as np
 import torch
 
-from optimal_control_paradiag_torch.cuda_build import launch_fused_solve, load_library
-from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
-from optimal_control_paradiag_torch.paradiag.cuda_woodbury import (
+from optimal_control_paradiag_torch.paradiag.fused import (
+    FusedKernel,
     WoodburySchedule,
-    slab_schedule,
-    widest_slab,
-)
-from optimal_control_paradiag_torch.paradiag.spectral import (
-    make_halfspectrum_transforms,
-    pairing_weights,
+    build_direct_solver,
+    dispatch,
+    phase_table,
+    schedule,
 )
 from optimal_control_paradiag_torch.utils.constants import to_device
-from optimal_control_paradiag_torch.utils.timing import counters, span
-
-KERNEL_SOURCE = "heat_woodbury.cu"
-# The streaming kernel's block: TJ = 16 columns x KS = 32 K-lanes.
-_TJ, _KS = 16, 32
+from optimal_control_paradiag_torch.utils.timing import span
 
 
 def _image_reals(slab: int, itemsize: int) -> int:
@@ -84,25 +73,27 @@ def _heat_slab_bytes(K: int, cols: int, lanes: int, stride: int, itemsize: int) 
     return 16 + ((8 + 16 // itemsize) * K + _image_reals(slab, itemsize) + 8 * slab) * itemsize + red
 
 
-def heat_streaming_schedule(itemsize: int) -> WoodburySchedule:
-    """The streaming kernel's fixed launch shape (its static shared memory:
-    2 x KS x TJ partials and 2 x TJ totals)."""
-    return WoodburySchedule("streaming", _TJ, _KS, 0, (2 * _KS * _TJ + 2 * _TJ) * itemsize)
+def _const_shapes(sched: WoodburySchedule, itemsize: int) -> dict:
+    """The constants of a launch of ``sched``: the (K, n) planes and the
+    rows for the streaming kernel; the planes, the rows, the padded phase
+    table and the image chunk of each block for the slab."""
+    shapes = {"a11r": ("K", "n"), "a11i": ("K", "n"), "invdet": ("K", "n"), "colc": (6, "n")}
+    if sched.kind == "streaming":
+        return {**shapes, "phases": ("K", 8)}
+    return {**shapes, "table": ("K", 8 + 16 // itemsize),
+            "image": ("blocks", _image_reals(sched.cols * sched.stride, itemsize))}
 
 
-def heat_slab_schedule(K: int, cols: int, itemsize: int) -> WoodburySchedule:
-    """The heat slab kernel with ``cols`` columns per block, whether or not
-    it fits a block (the lanes and stride rule of the wave slab)."""
-    return slab_schedule(K, cols, itemsize, _heat_slab_bytes)
-
-
-def heat_schedule(K: int, n: int, itemsize: int) -> WoodburySchedule:
-    """The schedule of the fused heat solve for K bins, n columns and reals
-    of ``itemsize`` bytes: the slab kernel with the largest power-of-two
-    column count C <= 32 (and no wider than n needs) whose slab fits the
-    shared memory a block may use, or the streaming kernel when not even one
-    column fits (K > 2525 in float32, K > 1382 in float64)."""
-    return widest_slab(K, n, itemsize, _heat_slab_bytes, heat_streaming_schedule(itemsize))
+KERNEL = FusedKernel(
+    name="heat",
+    source="heat_woodbury.cu",
+    error_string="heat_woodbury_error_string",
+    rank=2,
+    slab_bytes=_heat_slab_bytes,
+    const_shapes=_const_shapes,
+    aligned={"slab": ("table", "image")},  # the slab kernel bulk-copies both
+    counters=("b2.launches", "b2.launches.{kind}"),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,7 +135,7 @@ def pack_heat_constants(prob) -> HeatConstants:
     """Host float64 constant packing of a heat problem
     (``pallas_heat.py:134-182``) without the Pallas column padding and its
     two spare colc rows: the kernel guards ``j < n`` itself. Adds the
-    schedule of the shape (:func:`heat_schedule`) and the slab kernel's
+    schedule of the shape (``fused.schedule``) and the slab kernel's
     copies: the padded phase table and, for a slab schedule, the constant
     image."""
     N_t = prob.config.N_t
@@ -153,33 +144,27 @@ def pack_heat_constants(prob) -> HeatConstants:
     G_h = prob._capacity_2x2()
     colc = np.stack([muM64, tm_h[0], G_h[:, 0, 0], G_h[:, 0, 1], G_h[:, 1, 0], G_h[:, 1, 1]])
 
-    k = np.arange(K)
-    wgt = pairing_weights(N_t)
-    phases = np.zeros((K, 8))
-    for col, (i, sign, scale) in enumerate(
+    phases = phase_table(
+        N_t,
         [
             (N_t - 1, -1, None),  # phi_uN (weighted extraction)
             (0, -1, None),  # phi_p1
             (0, 1, 1.0 / N_t),  # psi_u1 (injection)
             (N_t - 1, 1, 1.0 / N_t),  # psi_pN
-        ]
-    ):
-        z = np.exp(sign * 2j * np.pi * i * k / N_t)
-        z = z * (wgt if scale is None else scale)
-        phases[:, 2 * col] = z.real
-        phases[:, 2 * col + 1] = z.imag
+        ],
+    )
 
     put = lambda a: to_device(a, prob.config.dtype, prob.device)
     a11r, a11i, invdet = put(a11_h[:K].real), put(a11_h[:K].imag), put(1.0 / det_h[:K])
-    schedule = heat_schedule(K, a11r.shape[1], a11r.element_size())
-    if schedule.kind == "slab":
-        image = _slab_image(a11r, a11i, invdet, schedule)
+    sched = schedule(KERNEL, K, a11r.shape[1], a11r.element_size())
+    if sched.kind == "slab":
+        image = _slab_image(a11r, a11i, invdet, sched)
     else:
         image = a11r.new_zeros(0, 0)
     phases = put(phases)
     table = torch.nn.functional.pad(phases, (0, 16 // phases.element_size()))
     return HeatConstants(
-        a11r=a11r, a11i=a11i, invdet=invdet, colc=put(colc), phases=phases, schedule=schedule, table=table, image=image
+        a11r=a11r, a11i=a11i, invdet=invdet, colc=put(colc), phases=phases, schedule=sched, table=table, image=image
     )
 
 
@@ -240,76 +225,6 @@ def fused_heat_reference(b_hat: torch.Tensor, c: HeatConstants, refine: int) -> 
     return torch.view_as_complex(out.contiguous())
 
 
-def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the ctypes signatures of a build of ``csrc/heat_woodbury.cu``."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.heat_streaming_f32, lib.heat_streaming_f64):
-        fn.argtypes = [p] * 7 + [i] * 5 + [p]
-        fn.restype = i
-    for fn in (lib.heat_slab_f32, lib.heat_slab_f64):
-        fn.argtypes = [p] * 8 + [i] * 9 + [p]
-        fn.restype = i
-    lib.heat_woodbury_error_string.argtypes = [i]
-    lib.heat_woodbury_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_library() -> ctypes.CDLL:
-    """The built kernel library, with its ctypes signatures declared."""
-    return _declare(load_library(KERNEL_SOURCE).lib)
-
-
-_STREAMING_SHAPES = {
-    "a11r": ("K", "n"),
-    "a11i": ("K", "n"),
-    "invdet": ("K", "n"),
-    "colc": (6, "n"),
-    "phases": ("K", 8),
-}
-
-
-def _launch(
-    b_hat: torch.Tensor, consts: HeatConstants, refine: int, sched: WoodburySchedule, lib: Optional[ctypes.CDLL] = None
-) -> torch.Tensor:
-    """Launch the kernel ``sched`` names on CUDA tensors and count it. A slab
-    schedule must have the columns and stride the constants' image was
-    packed for. ``lib`` is another build of the source (chip_smoke.py's
-    profile and plane-load variants), else the library itself."""
-    if b_hat.device.type != "cuda":
-        raise ValueError(f"the fused heat kernels run on CUDA tensors, got {b_hat.device}")
-    lib = lib or _kernel_library()
-    if sched.kind == "slab":
-        packed = consts.schedule
-        if packed.kind != "slab" or (packed.cols, packed.stride) != (sched.cols, sched.stride):
-            raise ValueError(f"the constants' slab image is packed for {packed}, not for {sched}")
-        if consts.table.data_ptr() % 16 or consts.image.data_ptr() % 16:
-            raise ValueError("the slab kernel bulk-copies the phase table and the constant image: "
-                             "both must be 16-byte aligned")
-        n, itemsize = consts.a11r.shape[1], consts.a11r.element_size()
-        fns = {torch.float32: lib.heat_slab_f32, torch.float64: lib.heat_slab_f64}
-        shapes = {
-            "a11r": ("K", "n"),
-            "a11i": ("K", "n"),
-            "invdet": ("K", "n"),
-            "colc": (6, "n"),
-            "table": ("K", 8 + 16 // itemsize),
-            "image": (-(-n // sched.cols), _image_reals(sched.cols * sched.stride, itemsize)),
-        }
-        extra = (sched.cols, sched.lanes, sched.stride, sched.smem_bytes)
-    elif sched.kind == "streaming":
-        fns = {torch.float32: lib.heat_streaming_f32, torch.float64: lib.heat_streaming_f64}
-        shapes, extra = _STREAMING_SHAPES, ()
-    else:
-        raise ValueError(f"unknown schedule kind {sched.kind!r}")
-    x = launch_fused_solve(
-        f"heat_{sched.kind}", fns, lib.heat_woodbury_error_string, b_hat, consts, shapes, refine, extra
-    )
-    counters["b2.launches"] += 1
-    counters["b2.launches." + sched.kind] += 1
-    return x
-
-
 def fused_heat(b_hat: torch.Tensor, consts: HeatConstants, refine: int) -> torch.Tensor:
     """``x = A_hat^{-1} b_hat`` of the heat family on the half spectrum, with
     ``refine`` defect corrections. ``b_hat`` is a contiguous (2, K, n)
@@ -322,37 +237,14 @@ def fused_heat(b_hat: torch.Tensor, consts: HeatConstants, refine: int) -> torch
     failed launch raises. A CPU tensor goes to :func:`fused_heat_reference`.
     Either is one ``fused/b2`` span."""
     with span("fused/b2"):
-        if b_hat.device.type == "cpu":
-            return fused_heat_reference(b_hat, consts, refine)
-        if b_hat.device.type != "cuda":
-            raise ValueError(f"fused_heat runs on CUDA or CPU tensors, got {b_hat.device}")
-        return _launch(b_hat, consts, refine, consts.schedule)
+        return dispatch(KERNEL, b_hat, consts, refine, fused_heat_reference)
 
 
-def _fused_heat_streaming(b_hat: torch.Tensor, consts: HeatConstants, refine: int) -> torch.Tensor:
-    """The streaming kernel at any shape, on CUDA tensors: the yardstick the
-    card tests and ``chip_smoke.py`` hold the slab kernel against. No solver
-    reaches it."""
-    return _launch(b_hat, consts, refine, heat_streaming_schedule(consts.a11r.element_size()))
-
-
-def build_cuda_heat_solver(prob, refine: int = 1, pack_fft: bool = True) -> Callable[[torch.Tensor], torch.Tensor]:
+def build_cuda_heat_solver(prob, refine: int = 1) -> Callable[[torch.Tensor], torch.Tensor]:
     """Direct solver ``b -> x`` for a heat problem on a sine-diagonalizable
-    space: DST matmul and time FFT (``pack_fft``: one packed complex FFT of
-    u + i p, else two rffts) around ONE fused kernel launch for the whole
-    rank-2 spectral Woodbury pipeline, ``refine`` included. On a CUDA problem
-    the kernel is built (from ``csrc/heat_woodbury.cu``) here."""
-    require_full_fp32_matmul()
+    space (``fused.build_direct_solver``): ONE fused kernel launch, from
+    ``csrc/heat_woodbury.cu``, between the packed transforms."""
     if not prob.space.diagonalizable:
         raise ValueError("the fused heat kernel needs a sine-diagonalizable space")
-    consts = pack_heat_constants(prob)
-    if prob.device.type == "cuda":
-        _kernel_library()
-    to_spectral, from_spectral = make_halfspectrum_transforms(
-        prob.space, prob.config.N_t, prob.config.dtype, time_transform="fft2" if pack_fft else "fft"
-    )
-
-    def solve(b: torch.Tensor) -> torch.Tensor:
-        return from_spectral(fused_heat(to_spectral(b), consts, refine))
-
-    return solve
+    return build_direct_solver(KERNEL, prob.space, prob.config.N_t, prob.config.dtype,
+                               lambda: pack_heat_constants(prob), fused_heat, refine)

@@ -235,36 +235,27 @@ def test_heat_batched_lanes_match_single_solves():
             _close(f(bs[i]), xs[i], 1e-12)
 
 
-def test_launch_checks_pass_the_batch_and_refuse_bad_sizes(monkeypatch):
-    """``launch_fused_solve`` (here with a recording stand-in for the
-    launcher, on CPU tensors, and stand-ins for the CUDA device and stream)
-    passes B after n, 1 for a single state, and refuses B = 0 and
-    B > 65535 before any launch."""
-    from types import SimpleNamespace
-
-    from optimal_control_paradiag_torch.cuda_build import MAX_BATCH, launch_fused_solve
-
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
+def test_launch_checks_pass_the_batch_and_refuse_bad_sizes():
+    """``fused.check_launch`` (on CPU tensors: it reads metadata alone)
+    hands the launcher B after n, 1 for a single state, and refuses B = 0
+    and B > 65535."""
+    from optimal_control_paradiag_torch.paradiag import fused
 
     tp = HeatControlProblem(ProblemConfig(N_x=12, N_t=10), device="cpu")
     c = ch.pack_heat_constants(tp)
-    shapes = {"a11r": ("K", "n"), "a11i": ("K", "n"), "invdet": ("K", "n"), "colc": (6, "n"), "phases": ("K", 8)}
-    calls = []
-    fns = {torch.float64: lambda *a: calls.append(a) or 0}
-    launch = lambda b: launch_fused_solve("heat", fns, None, b, c, shapes, 1)
+    sched = fused.streaming_schedule(ch.KERNEL, 8)
+    check = lambda b: fused.check_launch(ch.KERNEL, b, c, 1, sched)
     for shape, B in (((2, 6, 11), 1), ((3, 2, 6, 11), 3), ((1, 2, 6, 11), 1)):
-        x = launch(torch.zeros(shape, dtype=torch.complex128))
-        assert x.shape == shape and calls[-1][7:10] == (6, 11, B) and calls[-1][10] == 1
-    assert MAX_BATCH == 65535
-    for bad in ((0, 2, 6, 11), (MAX_BATCH + 1, 2, 1, 1)):
+        ptrs, sizes = check(torch.zeros(shape, dtype=torch.complex128))
+        assert sizes == (6, 11, B, 1) and len(ptrs) == 5
+    assert fused.MAX_BATCH == 65535
+    for bad in ((0, 2, 6, 11), (fused.MAX_BATCH + 1, 2, 1, 1)):
         with pytest.raises(ValueError, match="lanes|contiguous"):
-            launch(torch.zeros(bad, dtype=torch.complex128))
+            check(torch.zeros(bad, dtype=torch.complex128))
     with pytest.raises(ValueError, match="1 to 65535 lanes"):
-        launch(torch.zeros((0, 2, 6, 11), dtype=torch.complex128))
+        check(torch.zeros((0, 2, 6, 11), dtype=torch.complex128))
     with pytest.raises(ValueError, match="contiguous"):
-        launch(torch.zeros((2, 2, 2, 6, 11), dtype=torch.complex128))
-    assert len(calls) == 3
+        check(torch.zeros((2, 2, 2, 6, 11), dtype=torch.complex128))
 
 
 def _float32_noise_residuals(nx, nt, n_noise=4, seed=9):

@@ -28,9 +28,11 @@ from optimal_control_paradiag_torch import (
     SolverConfig,
     WaveControlProblem,
 )
+from optimal_control_paradiag_torch.cuda_build import device_and_stream
 from optimal_control_paradiag_torch.ops.transforms import time_rfft_conj_packed
 from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
 from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
+from optimal_control_paradiag_torch.paradiag import fused
 from optimal_control_paradiag_torch.paradiag.spectral import _capacity_matrices
 from optimal_control_paradiag_torch.utils.timing import counters
 
@@ -48,6 +50,13 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
+def _streaming(kernel):
+    """The family's streaming kernel at any shape: the yardstick the slab
+    kernel is held against."""
+    return lambda b_hat, c, refine: fused.launch(
+        kernel, b_hat, c, refine, fused.streaming_schedule(kernel, c.a11r.element_size()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "kw,dtype,refine,tol",
@@ -63,7 +72,7 @@ def _rel(a, b):
 def test_kernel_matches_twin(cuda, kw, dtype, refine, tol):
     prob = WaveControlProblem(ProblemConfig(**kw, dtype=dtype), device=cuda)
     c = cw.pack_constants(prob.operator)
-    assert cw.woodbury_schedule(*c.a11r.shape, c.a11r.element_size()).kind == "slab"
+    assert fused.schedule(cw.KERNEL, *c.a11r.shape, c.a11r.element_size()).kind == "slab"
     b_hat = time_rfft_conj_packed(prob.space.dst(prob.rhs), kw["N_t"])
     before = counters["b1.launches"]
     x = cw.fused_woodbury(b_hat, c, refine)
@@ -102,12 +111,12 @@ def test_schedules_match_twin(cuda, monkeypatch, kw, dtype, refine, tol, forced)
         monkeypatch.setattr(cw, "_real_capacity_matrices", lambda pl: _capacity_matrices(pl).real)
     prob = WaveControlProblem(ProblemConfig(**kw, dtype=dtype), device=cuda)
     c = cw.pack_constants(prob.operator)
-    sched = cw.woodbury_schedule(*c.a11r.shape, c.a11r.element_size())
+    sched = fused.schedule(cw.KERNEL, *c.a11r.shape, c.a11r.element_size())
     b_hat = time_rfft_conj_packed(prob.space.dst(prob.rhs), kw["N_t"])
     before = counters["b1.launches"]
     if forced:
         assert sched.kind == "slab"
-        x = cw._fused_woodbury_streaming(b_hat, c, refine)
+        x = _streaming(cw.KERNEL)(b_hat, c, refine)
     else:
         assert sched.kind == ("streaming" if kw["N_t"] == 10000 else "slab")
         x = cw.fused_woodbury(b_hat, c, refine)
@@ -124,12 +133,12 @@ def test_refused_slab_launch_raises(cuda):
     prob = WaveControlProblem(ProblemConfig(N_x=12, N_t=10), device=cuda)
     c = cw.pack_constants(prob.operator)
     b_hat = torch.zeros(2, 6, 11, dtype=torch.complex128, device=cuda)
-    sched = cw.woodbury_schedule(6, 11, 8)
+    sched = fused.schedule(cw.KERNEL, 6, 11, 8)
     for bad in (dataclasses.replace(sched, smem_bytes=sched.smem_bytes - 8),
                 dataclasses.replace(sched, lanes=3),
-                cw.WoodburySchedule("slab", 1, 128, 6, 300_000)):
+                fused.WoodburySchedule("slab", 1, 128, 6, 300_000)):
         with pytest.raises(RuntimeError, match="launch failed"):
-            cw._launch(b_hat, c, 1, bad)
+            fused.launch(cw.KERNEL, b_hat, c, 1, bad)
 
 
 @pytest.mark.cuda
@@ -143,7 +152,7 @@ def test_refused_slab_launch_leaves_no_stale_error(cuda):
     noise = rng.standard_normal((2, 6, 11)) + 1j * rng.standard_normal((2, 6, 11))
     b_hat = torch.from_numpy(noise).to(cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
-        cw._launch(b_hat, c, 1, cw.WoodburySchedule("slab", 1, 128, 6, 300_000))
+        fused.launch(cw.KERNEL, b_hat, c, 1, fused.WoodburySchedule("slab", 1, 128, 6, 300_000))
     before = counters["b1.launches"]
     x = cw.fused_woodbury(b_hat, c, 1)
     torch.cuda.synchronize()
@@ -235,9 +244,9 @@ def test_heat_streaming_matches_twin(cuda, kw, dtype, refine, tol, forced):
     c, b_hat = _heat_case(cuda, kw, dtype)
     if forced:
         assert c.schedule.kind == "slab"
-        x = _counted(lambda: ch._fused_heat_streaming(b_hat, c, refine), "streaming")
+        x = _counted(lambda: _streaming(ch.KERNEL)(b_hat, c, refine), "streaming")
     else:
-        assert c.schedule == ch.heat_streaming_schedule(c.a11r.element_size())
+        assert c.schedule == fused.streaming_schedule(ch.KERNEL, c.a11r.element_size())
         x = _counted(lambda: ch.fused_heat(b_hat, c, refine), "streaming")
     assert x.dtype == b_hat.dtype and x.shape == b_hat.shape
     assert _rel(x, ch.fused_heat_reference(b_hat, c, refine)) <= tol
@@ -252,16 +261,16 @@ def test_heat_refused_slab_launch_raises(cuda):
     c = ch.pack_heat_constants(prob)
     b_hat = torch.zeros(2, 6, 11, dtype=torch.complex128, device=cuda)
     sched = c.schedule
-    one = ch.heat_slab_schedule(6, 1, 8)
+    one = fused.slab_schedule(ch.KERNEL, 6, 1, 8)
     c1 = dataclasses.replace(c, schedule=one, image=ch._slab_image(c.a11r, c.a11i, c.invdet, one))
     before = counters["b2.launches"]
     for consts, bad in ((c, dataclasses.replace(sched, smem_bytes=sched.smem_bytes - 8)),
                         (c, dataclasses.replace(sched, lanes=3)),
                         (c1, dataclasses.replace(one, smem_bytes=300_000))):
         with pytest.raises(RuntimeError, match="launch failed"):
-            ch._launch(b_hat, consts, 1, bad)
+            fused.launch(ch.KERNEL, b_hat, consts, 1, bad)
     with pytest.raises(ValueError, match="packed for"):
-        ch._launch(b_hat, c, 1, one)
+        fused.launch(ch.KERNEL, b_hat, c, 1, one)
     assert counters["b2.launches"] == before
     x = _counted(lambda: ch.fused_heat(b_hat, c1, 1), "slab")
     assert x.abs().max().item() == 0.0
@@ -328,11 +337,11 @@ def test_batched_launch_is_bitwise_per_lane(cuda, kw, dtype, tol, family, kind):
     to the batched twin within the single launch's tolerance."""
     c, bs = _batch_case(cuda, family, kw, dtype)
     if family == "wave":
-        fn = cw.fused_woodbury if kind == "slab" else cw._fused_woodbury_streaming
+        fn = cw.fused_woodbury if kind == "slab" else _streaming(cw.KERNEL)
         twin, counter = cw.fused_woodbury_reference, "b1.launches"
         tol = tol or 2e-4
     else:
-        fn = ch.fused_heat if kind == "slab" else ch._fused_heat_streaming
+        fn = ch.fused_heat if kind == "slab" else _streaming(ch.KERNEL)
         twin, counter = ch.fused_heat_reference, "b2.launches"
         tol = tol or HEAT_TOL_F32
     before = counters[counter]
@@ -361,13 +370,12 @@ def test_batch_sizes_refused(cuda, family):
             fn(torch.zeros((B,) + tuple(bs.shape[1:]), dtype=bs.dtype, device=cuda), c, 1)
     assert counters[counter] == before
     if family == "wave":
-        lib = cw._kernel_library()
+        lib = fused.library(cw.KERNEL)
         x = torch.empty_like(bs)
         for B in (0, 65536):
             err = lib.woodbury_streaming_f64(bs.data_ptr(), x.data_ptr(), c.a11r.data_ptr(), c.a11i.data_ptr(),
                                              c.invdet.data_ptr(), c.colc.data_ptr(), c.gc.data_ptr(),
-                                             c.phases.data_ptr(), 2, 2, B, 1, torch.cuda.current_device(),
-                                             torch.cuda.current_stream().cuda_stream)
+                                             c.phases.data_ptr(), 2, 2, B, 1, *device_and_stream(bs))
             assert err != 0
     x = fn(bs, c, 1)  # a good launch after the refusals
     torch.cuda.synchronize()

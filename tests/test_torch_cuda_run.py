@@ -101,27 +101,6 @@ def test_cli_default_run_on_card_matches_cpu(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["wave", "heat"])
-def test_kernels_between_two_rffts_on_card(cuda, family):
-    """``pack_fft=False``: each fused kernel between two real rffts gives
-    the packed FFT's solve (the rfft's strided output is made contiguous
-    for the kernel)."""
-    from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, WaveControlProblem
-    from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
-    from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
-
-    cfg = ProblemConfig(N_x=64, N_t=32)
-    if family == "wave":
-        op = WaveControlProblem(cfg, device=cuda).operator
-        build = lambda pack: cw.build_cuda_woodbury_solver(op, pack_fft=pack)
-    else:
-        prob = HeatControlProblem(cfg, device=cuda)
-        build = lambda pack: ch.build_cuda_heat_solver(prob, pack_fft=pack)
-    b = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 32, 63))).to(cuda)
-    _close(build(True)(b), build(False)(b), 1e-12)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_batched_solves_on_card_match_cpu(cuda, dtype):
     """The batched wave solve (``make_batched_solver_fn``, one B1 launch)

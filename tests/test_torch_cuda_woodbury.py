@@ -54,13 +54,6 @@ def test_fused_solve_solves_system():
     assert rel.item() < 1e-10
 
 
-def test_unpacked_fft_matches_packed():
-    tp = TWave(TProblemConfig(N_x=20, N_t=15), device="cpu")
-    x1 = cw.build_cuda_woodbury_solver(tp.operator, pack_fft=True)(tp.rhs)
-    x2 = cw.build_cuda_woodbury_solver(tp.operator, pack_fft=False)(tp.rhs)
-    assert (x1 - x2).abs().max() <= TOL * x1.abs().max()
-
-
 def test_packed_constants_layout():
     """Each packed constant against its definition from the float64 plan."""
     tp = TWave(TProblemConfig(N_x=10, N_t=8), device="cpu")

@@ -18,10 +18,10 @@ import torch
 
 import optimal_control_paradiag_tpu as J
 from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, SolverConfig
-from optimal_control_paradiag_torch.cuda_build import launch_fused_solve
 from optimal_control_paradiag_torch.interop import heat_problem_from_jax
 from optimal_control_paradiag_torch.ops.transforms import time_rfft_conj_packed
 from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
+from optimal_control_paradiag_torch.paradiag import fused
 from optimal_control_paradiag_torch.utils.timing import counters
 from optimal_control_paradiag_tpu.models.heat import HeatControlProblem as JHeat
 from optimal_control_paradiag_tpu.paradiag import pallas_heat
@@ -163,13 +163,6 @@ def test_time_transforms_match_jax(time_transform):
     _close(x_j, x_t, 1e-11)
 
 
-def test_unpacked_fft_kernel_path_matches_packed():
-    tp = HeatControlProblem(ProblemConfig(N_x=20, N_t=15), device="cpu")
-    x1 = ch.build_cuda_heat_solver(tp, pack_fft=True)(tp.rhs)
-    x2 = ch.build_cuda_heat_solver(tp, pack_fft=False)(tp.rhs)
-    assert (x1 - x2).abs().max() <= 1e-12 * x1.abs().max()
-
-
 def test_error_vs_analytic_converges_like_jax():
     """Backward Euler: the manufactured error halves with tau, and matches
     the JAX package's to 1e-10."""
@@ -306,16 +299,13 @@ def test_invalid_problems_raise_like_jax():
 
 
 def test_launch_checks_refuse_bad_input_before_any_launch():
-    """The argument checks shared by both kernel wrappers run before the
-    launcher is called (here a recording stand-in, on CPU tensors)."""
+    """The argument checks shared by both kernel wrappers
+    (``fused.check_launch``) refuse bad input on tensor metadata alone, here
+    on CPU tensors, before any pointer reaches a kernel."""
     tp = HeatControlProblem(ProblemConfig(N_x=12, N_t=10), device="cpu")
     c = ch.pack_heat_constants(tp)
-    shapes = {"a11r": ("K", "n"), "a11i": ("K", "n"), "invdet": ("K", "n"), "colc": (6, "n"),
-              "phases": ("K", 8)}
-    calls = []
-    fns = {torch.float64: lambda *a: calls.append(a) or 0}
-    launch = lambda b, consts=c, sh=shapes, refine=1: launch_fused_solve(
-        "heat", fns, None, b, consts, sh, refine)
+    sched = fused.streaming_schedule(ch.KERNEL, 8)
+    check = lambda b, kernel=ch.KERNEL, refine=1: fused.check_launch(kernel, b, c, refine, sched)
     good = torch.zeros(2, 6, 11, dtype=torch.complex128)
     for bad, match in (
         (torch.zeros(2, 6, 10, dtype=torch.complex128), "contiguous"),
@@ -325,9 +315,10 @@ def test_launch_checks_refuse_bad_input_before_any_launch():
         (torch.zeros(2, 6, 11, dtype=torch.complex64), "constant a11r"),
     ):
         with pytest.raises(ValueError, match=match):
-            launch(bad)
+            check(bad)
     with pytest.raises(ValueError, match="inconsistent"):
-        launch(good, sh=dict(shapes, colc=(4, "n")))
+        four_rows = lambda s, e: dict(ch._const_shapes(s, e), colc=(4, "n"))
+        check(good, kernel=dataclasses.replace(ch.KERNEL, const_shapes=four_rows))
     with pytest.raises(ValueError, match="refine"):
-        launch(good, refine=-1)
-    assert not calls
+        check(good, refine=-1)
+    check(good)

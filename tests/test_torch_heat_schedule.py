@@ -1,9 +1,9 @@
 """The schedule rule of the fused heat Woodbury kernel
-(``paradiag/cuda_heat.py:heat_schedule``) and the slab's constant image, on
-the CPU: which of ``csrc/heat_woodbury.cu``'s two kernels runs at a shape,
-its columns per block, K-lanes and shared memory, and that the image the
-slab kernel bulk-copies holds the (K, n) constant planes bitwise. Pure
-arithmetic and copies: no card, no JAX."""
+(``paradiag/fused.py:schedule`` of ``cuda_heat.KERNEL``) and the slab's
+constant image, on the CPU: which of ``csrc/heat_woodbury.cu``'s two
+kernels runs at a shape, its columns per block, K-lanes and shared memory,
+and that the image the slab kernel bulk-copies holds the (K, n) constant
+planes bitwise. Pure arithmetic and copies: no card, no JAX."""
 
 import dataclasses
 
@@ -13,7 +13,7 @@ import torch
 
 from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig
 from optimal_control_paradiag_torch.paradiag import cuda_heat as ch
-from optimal_control_paradiag_torch.paradiag import cuda_woodbury as cw
+from optimal_control_paradiag_torch.paradiag import fused
 
 torch.set_num_threads(1)
 
@@ -42,9 +42,9 @@ def _bytes(K, cols, lanes, stride, itemsize):
     ids=["1d-f32", "1d-f64", "2d-lumped-f32", "2d-lumped-f64"],
 )
 def test_main_shapes_take_the_slab(K, n, itemsize, cols, lanes, stride, smem):
-    s = ch.heat_schedule(K, n, itemsize)
-    assert s == cw.WoodburySchedule("slab", cols, lanes, stride, smem)
-    assert s.smem_bytes == _bytes(K, cols, lanes, stride, itemsize) <= cw.SMEM_PER_BLOCK_MAX
+    s = fused.schedule(ch.KERNEL, K, n, itemsize)
+    assert s == fused.WoodburySchedule("slab", cols, lanes, stride, smem)
+    assert s.smem_bytes == _bytes(K, cols, lanes, stride, itemsize) <= fused.SMEM_PER_BLOCK_MAX
 
 
 @pytest.mark.parametrize("itemsize", [F32, F64], ids=["f32", "f64"])
@@ -55,18 +55,18 @@ def test_schedule_sweep_over_k(itemsize, n):
     block limit; the stride pads K by less than 64; a wider slab would not
     have fitted; past the long-K limit the streaming kernel runs."""
     for K in list(range(1, 70)) + list(range(70, 3200, 37)):
-        s = ch.heat_schedule(K, n, itemsize)
+        s = fused.schedule(ch.KERNEL, K, n, itemsize)
         if s.kind == "streaming":
             assert K > K_MAX[itemsize]
-            assert ch.heat_slab_schedule(K, 1, itemsize).smem_bytes > cw.SMEM_PER_BLOCK_MAX
+            assert fused.slab_schedule(ch.KERNEL, K, 1, itemsize).smem_bytes > fused.SMEM_PER_BLOCK_MAX
             continue
         c, lanes = s.cols, s.lanes
         assert c & (c - 1) == 0 and 1 <= c <= 32 and (c == 1 or c < 2 * n)
         assert lanes * c == (128 if c <= 4 else 256) and lanes & (lanes - 1) == 0
-        assert s.smem_bytes == _bytes(K, c, lanes, s.stride, itemsize) <= cw.SMEM_PER_BLOCK_MAX
+        assert s.smem_bytes == _bytes(K, c, lanes, s.stride, itemsize) <= fused.SMEM_PER_BLOCK_MAX
         assert K <= s.stride < K + 64
         if c < 32 and c < n:
-            assert ch.heat_slab_schedule(K, 2 * c, itemsize).smem_bytes > cw.SMEM_PER_BLOCK_MAX
+            assert fused.slab_schedule(ch.KERNEL, K, 2 * c, itemsize).smem_bytes > fused.SMEM_PER_BLOCK_MAX
 
 
 @pytest.mark.parametrize("itemsize", [F32, F64], ids=["f32", "f64"])
@@ -74,11 +74,11 @@ def test_long_k_switches_one_bin_past_the_limit(itemsize):
     """The slab runs while one column and the staged phase table fit
     232,448 B; one bin more and the schedule takes the streaming kernel."""
     k_max = K_MAX[itemsize]
-    s = ch.heat_schedule(k_max, 2047, itemsize)
+    s = fused.schedule(ch.KERNEL, k_max, 2047, itemsize)
     assert (s.kind, s.cols, s.lanes, s.stride) == ("slab", 1, 128, k_max)
-    assert s.smem_bytes <= cw.SMEM_PER_BLOCK_MAX
-    long = ch.heat_schedule(k_max + 1, 2047, itemsize)
-    assert long == ch.heat_streaming_schedule(itemsize)
+    assert s.smem_bytes <= fused.SMEM_PER_BLOCK_MAX
+    long = fused.schedule(ch.KERNEL, k_max + 1, 2047, itemsize)
+    assert long == fused.streaming_schedule(ch.KERNEL, itemsize)
     assert (long.kind, long.cols, long.lanes) == ("streaming", 16, 32)
 
 
@@ -119,7 +119,7 @@ def test_slab_image_unpacks_to_the_planes_bitwise(kw, dtype, cols):
     c = ch.pack_heat_constants(prob)
     assert c.schedule.kind == "slab"
     if cols is not None:  # the image of a narrower slab than the rule's
-        s = ch.heat_slab_schedule(K, cols, c.a11r.element_size())
+        s = fused.slab_schedule(ch.KERNEL, K, cols, c.a11r.element_size())
         c = dataclasses.replace(c, schedule=s, image=ch._slab_image(c.a11r, c.a11i, c.invdet, s))
     n, s = c.a11r.shape[1], c.schedule
     assert n % s.cols and c.image.dtype == dtype and c.image.is_contiguous()
@@ -138,7 +138,7 @@ def test_long_k_packs_no_image():
     empty image; the twin still runs on the planes."""
     prob = HeatControlProblem(ProblemConfig(N_x=4, N_t=2800), device="cpu")
     c = ch.pack_heat_constants(prob)
-    assert c.schedule == ch.heat_streaming_schedule(8) and c.image.shape == (0, 0)
+    assert c.schedule == fused.streaming_schedule(ch.KERNEL, 8) and c.image.shape == (0, 0)
     assert c.a11r.shape == (1401, 3)
     b_hat = torch.ones(2, 1401, 3, dtype=torch.complex128)
     assert torch.isfinite(torch.view_as_real(ch.fused_heat(b_hat, c, 1))).all()
