@@ -543,6 +543,7 @@ def gmres_phases(torch, smi, flush):
     )
     from optimal_control_paradiag_torch.krylov.gmres import arnoldi_step, clamp_restart, givens_update
     from optimal_control_paradiag_torch.paradiag.pc import build_preconditioner
+    from optimal_control_paradiag_torch.utils.timing import counters
 
     # 13. the reference's default run, card and CPU; the eig inner solvers
     ref = {}
@@ -582,10 +583,12 @@ def gmres_phases(torch, smi, flush):
         restart = clamp_restart(SolverConfig().restart, gop.shape, torch.float64, SolverConfig().maxiter)
     warnings.filterwarnings("ignore", message="GMRES restart")  # printed once here
     gcfg = SolverConfig(method="gmres", rtol=1e-8)
+    half0 = counters["pc.fulldiag.half_spectrum"]
     t0 = time.perf_counter()
     gsol = gprob.solve(gcfg)
     torch.cuda.synchronize()
     first_solve_s = time.perf_counter() - t0
+    half_applies = counters["pc.fulldiag.half_spectrum"] - half0
     g_its, g_conv = int(gsol.result.iterations), bool(gsol.result.converged)
     g_rel = gprob.relative_residual_f64(gsol)
     finite = bool(torch.isfinite(gsol.u).all() and torch.isfinite(gsol.p).all())
@@ -595,6 +598,7 @@ def gmres_phases(torch, smi, flush):
                       "clamp_warning": str(rec[0].message) if rec else None,
                       "iterations": g_its, "converged": g_conv, "first_solve_s": first_solve_s,
                       "relative_residual_f64": g_rel, "final_residual_norm": float(gsol.result.residual_norm),
+                      "pc_half_spectrum_applies": half_applies,
                       "gates": {"iterations": GMRES_HEADLINE_MAX_ITERS,
                                 "relative_residual_f64": GMRES_HEADLINE_MAX_REL_RESIDUAL},
                       "right_iterations": int(rsol.result.iterations),
@@ -606,6 +610,8 @@ def gmres_phases(torch, smi, flush):
         return f"headline GMRES: converged {g_conv} in {g_its} iterations (gate {GMRES_HEADLINE_MAX_ITERS})"
     if not g_rel <= GMRES_HEADLINE_MAX_REL_RESIDUAL:
         return f"headline GMRES residual {g_rel:.3e} > {GMRES_HEADLINE_MAX_REL_RESIDUAL}"
+    if half_applies != g_its + 1:  # left preconditioning: each step and the starting residual
+        return f"headline GMRES ran {half_applies} half-spectrum PC applies in {g_its} iterations"
     del rsol
 
     # 15. heat GMRES at both heat shapes, float64

@@ -11,8 +11,17 @@ analogue of the all-at-once matrix (time stencils replaced by circulants):
            [ dt^2/sqrt(g) muM,  conj(L1) muM + c conj(L2) muK ]],  c = dt^2/2,
 
   solved by Cramer's rule with ``det = |a11|^2 + (dt^2/sqrt(g) muM)^2 > 0``,
-  robust where Lambda_2(k) ~ 0 (N_t divisible by 4). The transforms are a
-  full-spectrum time transform and the space's DST (``dst_method``).
+  robust where Lambda_2(k) ~ 0 (N_t divisible by 4). Unsharded it runs on
+  the real half spectrum, as the direct solves do: the space's DST
+  (``dst_method``) of the real residual, an rfft over time to the
+  K = N_t//2 + 1 bins (``spectral.make_halfspectrum_transforms``), the
+  Cramer inverse there, then irfft and the inverse DST. The DST and the time
+  transform commute, the spectrum of a real residual is Hermitian and so
+  are the per-mode constants, so this is the same operator with half the
+  DST work of the full-spectrum order. Sharded it keeps that order: the
+  full-spectrum time transform first, then the DST, two stage moves each
+  way where the half-spectrum pipeline takes three of about the same bytes
+  in all; which of the two is faster sharded has not been measured.
 
 'eig': the reference's 7-step apply: ifft over time, S^{-1} 2x2 mix,
   per-mode complex-shifted spatial solves ``(Sigma_i M + c K)``, S mix,
@@ -57,9 +66,10 @@ from optimal_control_paradiag_torch.paradiag.blockband import build_blockband_so
 from optimal_control_paradiag_torch.paradiag.blockline import build_blockline_solver
 from optimal_control_paradiag_torch.paradiag.eigs import circulant_eigs
 from optimal_control_paradiag_torch.paradiag.inner import make_dst_inner_solver
+from optimal_control_paradiag_torch.paradiag.spectral import d_inv, make_halfspectrum_transforms
 from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
 from optimal_control_paradiag_torch.utils.constants import complex_dtype, host_f64, to_device
-from optimal_control_paradiag_torch.utils.timing import spanned
+from optimal_control_paradiag_torch.utils.timing import counters, spanned
 
 _VARIANTS = ("fulldiag", "eig", "block", "blockdense", "blockline", "blockband")
 
@@ -84,6 +94,9 @@ def build_preconditioner(
     :mod:`ops.transforms`). ``inner_tol`` and ``inner_maxiter`` bound the
     'block' variant's COCG. Each apply is a ``pc/apply`` span, its time
     transforms ``transforms/time_fwd`` and ``transforms/time_inv`` spans.
+    Unsharded, 'fulldiag' runs on the real half spectrum (module docstring;
+    ``time_transform`` names the pair's rfft or 'dft' matmuls) and counts
+    each apply in ``utils.timing.counters['pc.fulldiag.half_spectrum']``.
 
     ``layout`` (a ``parallel.sharding.ParallelLayout``): ``apply`` maps this
     rank's canonical block of r to its block of y. The FFT stage runs
@@ -112,6 +125,8 @@ def build_preconditioner(
     c = 0.5 * op.dt * op.dt
     N_t, n = op.N_t, sp.n
     rows = lay.rows("mode_local", N_t)  # this rank's modes (all of them unsharded)
+    if variant == "fulldiag" and not lay.sharded:
+        return spanned("pc/apply", _fulldiag_half(op, e, time_transform))
 
     if time_transform == "dft":
         Cm, Sm = transforms.dft_matrices(op.N_t, rdtype, dev)
@@ -141,19 +156,8 @@ def build_preconditioner(
         y = fft_t_real(lay.move(y, "mode_local", "time_local", N_t, n))
         return lay.move(y, "time_local", "canonical", N_t, n)
 
-    if variant == "fulldiag":
-        muM, muK = sp.spectrum
-        if muM is None:
-            raise ValueError(
-                "fulldiag requires a sine-diagonalizable mass matrix "
-                "(1D, or 2D with mass='lumped'); use variant='eig' with an "
-                "iterative inner_solver for 2D consistent mass."
-            )
-        # Host float64 constants, cast once and copied to the device once.
-        muM_h = np.asarray(muM, np.float64)[None, :]
-        a11_h = e.Lambda1[rows, None] * muM_h + c * e.Lambda2[rows, None] * np.asarray(muK, np.float64)[None, :]
-        coup_h = (op.dt * op.dt / (op.gamma**0.5)) * muM_h  # (1, n) real
-        det_h = np.abs(a11_h) ** 2 + coup_h * coup_h
+    if variant == "fulldiag":  # sharded: the full-spectrum order
+        a11_h, coup_h, det_h = _fulldiag_constants(op, e, rows)
         a11 = to_device(a11_h, cdtype, dev)
         a22 = to_device(np.conj(a11_h), cdtype, dev)
         coup = to_device(coup_h, rdtype, dev)
@@ -207,6 +211,53 @@ def build_preconditioner(
         return from_modes(join_state(yu, yp))
 
     return spanned("pc/apply", apply_eig)
+
+
+def _fulldiag_constants(op, e, rows):
+    """The 'fulldiag' Cramer constants ``(a11, coup, det)`` of the modes
+    ``rows``, host float64: ``(m, n)`` complex, ``(1, n)`` real and
+    ``(m, n)`` real."""
+    muM, muK = op.space.spectrum
+    if muM is None:
+        raise ValueError(
+            "fulldiag requires a sine-diagonalizable mass matrix "
+            "(1D, or 2D with mass='lumped'); use variant='eig' with an "
+            "iterative inner_solver for 2D consistent mass."
+        )
+    c = 0.5 * op.dt * op.dt
+    muM_h = np.asarray(muM, np.float64)[None, :]
+    a11_h = e.Lambda1[rows, None] * muM_h + c * e.Lambda2[rows, None] * np.asarray(muK, np.float64)[None, :]
+    coup_h = (op.dt * op.dt / (op.gamma**0.5)) * muM_h
+    return a11_h, coup_h, np.abs(a11_h) ** 2 + coup_h * coup_h
+
+
+def _fulldiag_half(op, e, time_transform):
+    """The unsharded 'fulldiag' apply on the real half spectrum:
+    ``from_s(D^{-1} to_s(r))`` with the ``make_halfspectrum_transforms``
+    pair (DST of the real residual, then rfft over time; irfft, then the
+    inverse DST) and the Cramer inverse on the first K = N_t//2 + 1 modes.
+    Two real DST products an apply, where the full-spectrum order takes a
+    complex one each way (four). Each apply counts
+    ``counters['pc.fulldiag.half_spectrum']``."""
+    sp, N_t = op.space, op.N_t
+    rdtype, dev = sp.dtype, sp.device
+    cdtype = complex_dtype(rdtype)
+    K = N_t // 2 + 1
+    # Host float64 constants, cast once and copied to the device once.
+    a11_h, coup_h, det_h = _fulldiag_constants(op, e, slice(0, K))
+    to_s, from_s = make_halfspectrum_transforms(sp, N_t, rdtype, time_transform=time_transform)
+    D_inv = d_inv(
+        to_device(a11_h, cdtype, dev),
+        to_device(np.conj(a11_h), cdtype, dev),
+        to_device(coup_h, rdtype, dev),
+        to_device(1.0 / det_h, rdtype, dev),
+    )
+
+    def apply_fulldiag(r: torch.Tensor) -> torch.Tensor:
+        counters["pc.fulldiag.half_spectrum"] += 1
+        return from_s(D_inv(to_s(r)))
+
+    return apply_fulldiag
 
 
 def _block(op, sp, e, c, to_modes, from_modes, inner_tol, inner_maxiter, lay, rows):

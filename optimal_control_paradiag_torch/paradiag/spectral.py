@@ -342,7 +342,7 @@ def make_halfspectrum_transforms(
     return to_spectral, from_spectral
 
 
-def _d_inv(a11, a22, tm, inv_det):
+def d_inv(a11, a22, tm, inv_det):
     """r -> D^{-1} r, the per-(k, j) 2x2 Cramer inverse of the circulant
     block, on states ``(..., 2, K, n)``."""
 
@@ -448,7 +448,7 @@ def _make_ops(op: AllAtOnceOperator, pl: _SpectralPlan, time_transform: str = "f
     phis, psis = (tuple(v[rows] for v in vs) for vs in _full_phases(pl))
     extract = lambda xu, xp: _reduce4(lay, _extract4(phis, xu, xp))
     A_hat = _a_hat(a11, a22, tm, pl, extract, psis)
-    D_inv = _d_inv(a11, a22, tm, inv_det)
+    D_inv = d_inv(a11, a22, tm, inv_det)
     if time_transform == "dft":
         C_t, S_t = dft_matrices(pl.N_t, rdtype, pl.device)
         ifft_t = lambda x: time_ifft_real_mm(x.to(rdtype), C_t, S_t)
@@ -555,7 +555,7 @@ def _build_woodbury_half(
     G = [[to_device(G_h[:, a, b], rdtype, dev) for b in range(4)] for a in range(4)]
     a11, a22, tm, inv_det = pl.mode_diag(K, rows=rows)
 
-    D_inv = _d_inv(a11, a22, tm, inv_det)
+    D_inv = d_inv(a11, a22, tm, inv_det)
 
     def extract(yu, yp):
         return _reduce4(lay, tuple(e.real for e in _extract4((phi_uNm1, phi_uNm2, phi_p0, phi_p1), yu, yp)))

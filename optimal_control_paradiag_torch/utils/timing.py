@@ -34,9 +34,11 @@ Counters. :data:`counters` counts whether or not a profiler records:
 ``b3.launches``, ``b3.launches.wgmma``, ``b3.split.launches``,
 ``time_pack.pack.launches``, ``time_pack.split.launches``,
 ``time_pack.merge.launches`` and ``time_pack.unpack.launches`` (the
-kernels' launches), and, through :func:`counted_span`, ``krylov/step`` and
-``host/sync`` (host syncs per Krylov step is their ratio) and the 2D sine
-transform's ``transforms/dst.x`` and ``transforms/dst.y``.
+kernels' launches), ``pc.fulldiag.half_spectrum`` (each unsharded
+'fulldiag' ParaDiag apply, which runs on the real half spectrum), and,
+through :func:`counted_span`, ``krylov/step`` and ``host/sync`` (host syncs
+per Krylov step is their ratio) and the 2D sine transform's
+``transforms/dst.x`` and ``transforms/dst.y``.
 """
 
 from __future__ import annotations

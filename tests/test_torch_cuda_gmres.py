@@ -71,6 +71,34 @@ def test_heat_gmres_on_card_matches_cpu(cuda, kw):
     assert abs(out[0][1] - out[1][1]) <= 1e-10
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(N_x=64, N_t=32), dict(N_x=12, N_t=9, dim=2, mass="lumped")],
+                         ids=["1d", "2d-lumped"])
+def test_half_spectrum_fulldiag_gmres_on_card_matches_cpu(cuda, kw):
+    """Float64 wave GMRES with the unsharded 'fulldiag' PC, which runs on the
+    real half spectrum: the same iterations on the card as on the CPU, the
+    apply 1e-12 apart (relative), and one counted half-spectrum apply a
+    step plus one for the starting residual."""
+    from optimal_control_paradiag_torch.paradiag.pc import build_preconditioner
+    from optimal_control_paradiag_torch.utils.timing import counters
+
+    cfg = ProblemConfig(dtype=torch.float64, **kw)
+    out = []
+    for dev in (cuda, "cpu"):
+        prob = WaveControlProblem(cfg, device=dev)
+        r = torch.randn(prob.operator.shape, dtype=torch.float64, generator=torch.Generator().manual_seed(4))
+        y = build_preconditioner(prob.operator, variant="fulldiag")(r.to(dev))
+        before = counters["pc.fulldiag.half_spectrum"]
+        sol = prob.solve(SolverConfig(rtol=1e-8, pc_variant="fulldiag"))
+        its = int(sol.result.iterations)
+        assert bool(sol.result.converged) and prob.relative_residual_f64(sol) < 1e-7
+        assert counters["pc.fulldiag.half_spectrum"] - before == its + 1
+        out.append((its, y))
+    assert out[0][1].is_cuda
+    assert out[0][0] == out[1][0]
+    assert _rel(out[0][1], out[1][1]) <= 1e-12
+
+
 # --- the spaces the sine transform does not diagonalize: 2D consistent mass
 # and triangle meshes (float64, card against CPU; applies 1e-12 relative,
 # solves 1e-10 relative with the same iteration counts)

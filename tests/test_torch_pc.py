@@ -5,7 +5,9 @@ on the CPU, on seeded numpy inputs.
 Tolerances (relative max-abs, ``|a - b|.max() <= tol * |a|.max()``): the
 port's applies against JAX's 1e-12; the PC against the exact inverse of the
 block-circulant operator 1e-9 absolute (tests/test_paradiag.py); ``fulldiag``
-against ``eig`` 1e-10, or 1e-6 where N_t % 4 == 0 (Lambda_2 ~ 0 there)."""
+against ``eig`` 1e-10, or 1e-6 where N_t % 4 == 0 (Lambda_2 ~ 0 there); the
+unsharded ``fulldiag`` (real half spectrum) against the full-spectrum order
+1e-13 (the same float64 operator, rounded in another order)."""
 
 import dataclasses
 
@@ -16,10 +18,12 @@ import torch
 
 import optimal_control_paradiag_tpu as J
 from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig
-from optimal_control_paradiag_torch.fem.space import make_space
+from optimal_control_paradiag_torch.fem.space import P1Space, make_space
 from optimal_control_paradiag_torch.interop import heat_problem_from_jax
 from optimal_control_paradiag_torch.ops.allatonce import build_operator
+from optimal_control_paradiag_torch.paradiag.eigs import circulant_eigs
 from optimal_control_paradiag_torch.paradiag.pc import build_preconditioner
+from optimal_control_paradiag_torch.utils import timing
 from optimal_control_paradiag_tpu.fem.space import make_space as j_make_space
 from optimal_control_paradiag_tpu.models.heat import HeatControlProblem as JHeat
 from optimal_control_paradiag_tpu.ops.allatonce import build_operator as j_build_operator
@@ -98,6 +102,62 @@ def test_fulldiag_equals_eig_variant(N_t):
     _close(yf, ye, tol)
 
 
+def full_spectrum_fulldiag(op, r):
+    """The 'fulldiag' apply in the full-spectrum order, on all N_t modes:
+    ``fft(idst(solve(dst(ifft(r))))).real``, the 2x2 Cramer solve per
+    (mode, wavenumber) from float64 host constants."""
+    sp = op.space
+    e = circulant_eigs(op.N_t, op.dt, op.gamma)
+    muM, muK = (np.asarray(v, np.float64)[None, :] for v in sp.spectrum)
+    a11 = e.Lambda1[:, None] * muM + 0.5 * op.dt * op.dt * e.Lambda2[:, None] * muK
+    coup = op.dt * op.dt / op.gamma**0.5 * muM
+    det = np.abs(a11) ** 2 + coup * coup
+    a11, a22, coup, det = (torch.from_numpy(np.ascontiguousarray(v)) for v in (a11, np.conj(a11), coup, det))
+    s = sp.dst(torch.fft.ifft(r.to(torch.complex128), dim=-2))
+    ru, rp = s[..., 0, :, :], s[..., 1, :, :]
+    y = torch.stack([(a22 * ru + coup * rp) / det, (a11 * rp - coup * ru) / det], dim=-3)
+    return torch.fft.fft(sp.idst(y), dim=-2).real
+
+
+@pytest.mark.parametrize("time_transform", ["fft", "dft"])
+@pytest.mark.parametrize("batch", [(), (3,)], ids=["single", "batch3"])
+@pytest.mark.parametrize("dim,N_x,mass", [(1, 8, "consistent"), (1, 6, "lumped"), (2, 5, "lumped")],
+                         ids=["1d-consistent", "1d-lumped", "2d-lumped"])
+@pytest.mark.parametrize("N_t", [7, 8, 64, 81])
+def test_half_spectrum_fulldiag_equals_full_spectrum_order(N_t, dim, N_x, mass, batch, time_transform):
+    """The unsharded apply (DST of the real residual, rfft to K bins, the
+    Cramer inverse there, irfft, inverse DST) is the full-spectrum
+    composition: odd and even N_t (with and without a Nyquist bin), leading
+    batch axes, both time transforms; one counted apply each call."""
+    _, top = _ops(dim, N_x, N_t, gamma=0.7, mass=mass)
+    r = torch.from_numpy(np.random.default_rng(11).standard_normal(batch + top.shape))
+    pc = build_preconditioner(top, variant="fulldiag", time_transform=time_transform)
+    before = timing.counters["pc.fulldiag.half_spectrum"]
+    y = pc(r)
+    assert timing.counters["pc.fulldiag.half_spectrum"] - before == 1
+    assert y.dtype == torch.float64 and y.shape == r.shape
+    _close(full_spectrum_fulldiag(top, r), y, 1e-13)
+
+
+@pytest.mark.parametrize("dst_method", ["matmul", "fft", "mxu4"])
+@pytest.mark.parametrize("dim,N_x,mass", [(1, 8, "consistent"), (2, 5, "lumped")], ids=["1d", "2d-lumped"])
+def test_half_spectrum_fulldiag_sine_transforms_only_real_tensors(monkeypatch, dim, N_x, mass, dst_method):
+    """On the unsharded 'fulldiag' route every sine transform takes a real
+    tensor: two a call (forward and inverse), none complex."""
+    top = build_operator(make_space(dim, N_x, mass=mass, dst_method=dst_method, device="cpu"), 8, 0.25, 1.0)
+    pc = build_preconditioner(top, variant="fulldiag")
+    seen = []
+    inner = P1Space._dst
+
+    def recording(self, x):
+        seen.append(x.is_complex())
+        return inner(self, x)
+
+    monkeypatch.setattr(P1Space, "_dst", recording)
+    pc(torch.from_numpy(np.random.default_rng(12).standard_normal((2,) + top.shape)))
+    assert seen == [False, False]
+
+
 def test_fulldiag_robust_at_singular_lambda2():
     """N_t = 8: mode k = 2 has Lambda_2 = 1 + e^{i pi} ~ 1e-16."""
     _, top = _ops(1, 8, 8)
@@ -150,7 +210,9 @@ def test_sharded_pc_raises(layout_1x1):
     _, top = _ops(1, 8, 7)
     r = torch.from_numpy(np.random.default_rng(0).standard_normal(top.shape))
     for variant in ("fulldiag", "eig"):
+        before = timing.counters["pc.fulldiag.half_spectrum"]
         got = build_preconditioner(top, variant=variant, layout=layout_1x1)(r)
+        assert timing.counters["pc.fulldiag.half_spectrum"] == before  # the full-spectrum order
         _close(build_preconditioner(top, variant=variant, time_transform="dft")(r), got, 1e-13)
     assert layout_1x1.counts == {"all_to_all": 8}
 

@@ -72,7 +72,8 @@ def test_gmres_spans_and_host_syncs(tmp_path):
     """Float64 GMRES with the fulldiag ParaDiag preconditioner, one restart
     cycle: entry > krylov/step > pc/apply > transforms/*, a host/sync in
     each step and two more in the restart spans (iterations + 2), and the
-    counters moved by the same counts."""
+    counters moved by the same counts, the half-spectrum apply's by
+    ``iterations + 1``."""
     prob = WaveControlProblem(ProblemConfig(N_x=16, N_t=8, dtype=torch.float64), device="cpu")
     solver = SolverConfig(rtol=1e-8, pc_variant="fulldiag")
     prob.solve(solver)
@@ -95,6 +96,7 @@ def test_gmres_spans_and_host_syncs(tmp_path):
     assert names.count("transforms/dst") == 2 * (its + 1)
     assert timing.counters["krylov/step"] - before.get("krylov/step", 0) == its
     assert timing.counters["host/sync"] - before.get("host/sync", 0) == its + 2
+    assert timing.counters["pc.fulldiag.half_spectrum"] - before.get("pc.fulldiag.half_spectrum", 0) == its + 1
 
 
 def test_minres_spans(tmp_path):
