@@ -5,11 +5,17 @@
 For each of ``--seeds`` it drives the cell's timed entry once over the
 pool of that seed, as a run's window does, and judges every answer as a
 run does (the program's readings: the lower end of the limit). For each of
-``--control-seeds`` it puts the reference's direct solve in the program's
+``--control-seeds`` it puts the reference's solve in the program's
 place, computed in the precision below the traffic's
 (``reference.solve.control_precision``), and judges its answers the same
-way (the control's readings: the upper end). One JSON line per seed; the
-benchmark's own runs never run this.
+way (the control's readings: an upper end). On a space the sine transform
+does not diagonalize (the 2D consistent mass), where the control is GMRES
+preconditioned by the sine solve of a surrogate, each control seed gives one
+more line, ``"side": "surrogate"``: the surrogate's float64 solve alone in
+the program's place, judged the same way (another upper end); those lines
+also give the control's GMRES steps per lane and each side's peak device
+memory. One JSON line per seed and side; the benchmark's own runs never run
+this.
 """
 
 import json
@@ -61,20 +67,32 @@ def control(cell, seeds, device):
     problem, pc, tr = cell.config["problem"], cell.config["problem_config"], cell.traffic
     precision = rs.control_precision(tr)
     batch, pool = int(tr["batch"]), int(tr["pool"])
+    extra = not rs.diagonalizable(pc)  # a GMRES control, and the surrogate beside it
+    sides = [("control", precision, lambda b, its: rs.solve(problem, pc, b, precision, its))]
+    if extra:
+        sides.append(("surrogate", "float64", lambda b, its: rs.surrogate_solve(problem, pc, b)))
+    cuda = device.type == "cuda"
     for seed in seeds:
-        t0 = time.perf_counter()
-        answers = []
-        for j in range(pool):
-            bs = []
-            for lane in range(batch):
-                data = {k: torch.from_numpy(v).to(device) for k, v in cellmod.member(cell, seed, j * batch + lane).items()}
-                bs.append(ref.rhs(problem, pc, data))
-            b = torch.stack(bs) if batch > 1 else bs[0]
-            answers.append(rs.solve(problem, pc, b, precision))
-        solve_s = time.perf_counter() - t0
-        rel, answered = readings(cell, seed, answers, device)
-        print(json.dumps({"side": "control", "precision": precision, "cell": cell.name, "seed": seed,
-                          "rel_residual": rel, "answered": answered, "solve_s": solve_s}), flush=True)
+        for side, prec, solve in sides:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            answers, its = [], []
+            for j in range(pool):
+                bs = []
+                for lane in range(batch):
+                    data = {k: torch.from_numpy(v).to(device) for k, v in cellmod.member(cell, seed, j * batch + lane).items()}
+                    bs.append(ref.rhs(problem, pc, data))
+                b = torch.stack(bs) if batch > 1 else bs[0]
+                answers.append(solve(b, its))
+            solve_s = time.perf_counter() - t0
+            rel, answered = readings(cell, seed, answers, device)
+            line = {"side": side, "precision": prec, "cell": cell.name, "seed": seed,
+                    "rel_residual": rel, "answered": answered, "solve_s": solve_s}
+            if extra:
+                line["iterations"] = its
+                line["peak_bytes"] = int(torch.cuda.max_memory_allocated(device)) if cuda else None
+            print(json.dumps(line), flush=True)
 
 
 def main(argv=None) -> int:

@@ -1,10 +1,11 @@
 """Small cells for the CPU tests: a cell's files at a tiny grid."""
 
 import dataclasses
+import os
 
 from portbench import manifest
 
-CELLS = ["wave1d_headline.direct", "heat1d_headline.batch8", "wave1d_headline.gmres_f64"]
+CELLS = ["wave1d_headline.direct", "heat1d_headline.batch8", "wave1d_headline.gmres_f64", "heat2d_lumped.batch8"]
 
 
 def tiny(name: str, N_x: int = 64, N_t: int = 32, trace: bool = False, root: str = manifest.ROOT):
@@ -13,3 +14,13 @@ def tiny(name: str, N_x: int = 64, N_t: int = 32, trace: bool = False, root: str
     cell = manifest.make_cell(name, config, traffic, 1, trace, root)
     pc = dict(cell.config["problem_config"], N_x=N_x, N_t=N_t)
     return dataclasses.replace(cell, config=dict(cell.config, problem_config=pc))
+
+
+def consistent_cell(traffic: str, N_x: int, N_t: int, limit: float = 1.0) -> manifest.Cell:
+    """A 2D consistent-mass wave cell on an N_x x N_t grid under the traffic
+    mix ``traffic``, built from dicts (no configuration of the benchmark has
+    that space yet)."""
+    pc = {"N_x": N_x, "N_t": N_t, "T": 2.0, "gamma": 1.0, "dim": 2, "scaled": True, "mass": "consistent"}
+    return manifest.Cell(name=f"wave2d_consistent.{traffic}", chips=1, config={"problem": "wave", "problem_config": pc},
+                         traffic=manifest.load_json(os.path.join(manifest.HERE, "traffic", traffic + ".json")),
+                         limits={"rel_residual": limit}, metrics=[])

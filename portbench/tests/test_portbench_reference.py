@@ -28,15 +28,17 @@ def _dense(problem, pc, shape):
 
 @pytest.mark.parametrize("problem", ["wave", "heat"])
 @pytest.mark.parametrize("dim,mass,N_x", SPACES)
-def test_against_a_dense_float64_solve(problem, dim, mass, N_x):
-    pc, data = _case(problem, dim, mass, N_x)
+@pytest.mark.parametrize("N_t", [8, 9])
+def test_against_a_dense_float64_solve(problem, dim, mass, N_x, N_t):
+    """Every space, GMRES on the 2D consistent mass; an odd N_t leaves the
+    block solve a trailing slice coupled to nothing."""
+    pc, data = _case(problem, dim, mass, N_x, N_t)
     b = ref.rhs(problem, pc, data)
     A = _dense(problem, pc, b.shape)
     x = torch.linalg.solve(A, b.reshape(-1)).reshape(b.shape)
     assert ref.rel_residual(problem, pc, data, x) < 1e-12
-    if (dim, mass) != (2, "consistent"):
-        xs = rs.solve(problem, pc, b, "float64")
-        assert float((xs - x).abs().max() / x.abs().max()) < 1e-12
+    xs = rs.solve(problem, pc, b, "float64")
+    assert float((xs - x).abs().max() / x.abs().max()) < 1e-12
     assert ref.rel_residual(problem, pc, data, torch.full_like(x, math.nan)) == math.inf
 
 
@@ -71,11 +73,19 @@ def test_matches_the_ports_operator_and_oracle(problem):
 
 
 @pytest.mark.parametrize("problem", ["wave", "heat"])
-def test_control_precisions_in_order(problem):
-    pc, data = _case(problem, 1, "consistent", 128, N_t=64)
+@pytest.mark.parametrize("dim,N_x,N_t", [(1, 128, 64), (2, 64, 32)], ids=["1d", "2d_consistent"])
+def test_control_precisions_in_order(problem, dim, N_x, N_t):
+    """Each precision reads below the next; on the 2D consistent mass (GMRES)
+    float64 takes at most 15 steps a lane."""
+    pc, data = _case(problem, dim, "consistent", N_x, N_t=N_t)
     b = ref.rhs(problem, pc, data)
-    rel = {p: ref.rel_residual(problem, pc, data, rs.solve(problem, pc, b, p)) for p in ("float64", "float32", "tf32", "bf16")}
+    steps = {p: [] for p in ("float64", "float32", "tf32", "bf16")}
+    rel = {p: ref.rel_residual(problem, pc, data, rs.solve(problem, pc, b, p, steps[p])) for p in steps}
     assert rel["float64"] < 1e-11 < rel["float32"] < rel["tf32"] / 10 < rel["bf16"]
+    if dim == 2:
+        assert 1 <= steps["float64"][0] <= 15 and all(1 <= s[0] <= rs.LOW_STEPS for s in steps.values())
+    else:
+        assert not any(steps.values())
     assert rs.control_precision({"dtype": "float64", "dst_precision": "highest"}) == "float32"
     assert rs.control_precision({"dtype": "float32", "dst_precision": "highest"}) == "tf32"
     assert rs.control_precision({"dtype": "float32", "dst_precision": "high"}) == "bf16"
@@ -85,3 +95,69 @@ def test_round_mantissa():
     x = torch.tensor([1.0 + 2**-11, 1.0 + 3 * 2**-11, -1.0 - 2**-8 - 2**-9, 3.0], dtype=torch.float32)
     assert rs.round_mantissa(x, 10).tolist() == [1.0, 1.0 + 4 * 2**-11, -1.0 - 2**-8 - 2**-9, 3.0]
     assert rs.round_mantissa(x, 7).tolist() == [1.0, 1.0, -1.0 - 2**-7, 3.0]
+
+
+def test_gmres_is_never_entered_on_a_sine_diagonalizable_space(monkeypatch):
+    """On the 1D and 2D lumped spaces ``solve`` is the sine solve alone, and
+    ``surrogate_solve`` is that solve in float64, bit for bit."""
+    def refused(*args):
+        raise AssertionError("GMRES entered")
+
+    monkeypatch.setattr(rs, "_gmres", refused)
+    for dim, mass, N_x in SPACES[:3]:
+        for problem in ("wave", "heat"):
+            pc, data = _case(problem, dim, mass, N_x, N_t=7)
+            b = torch.stack([ref.rhs(problem, pc, data)] * 2)
+            steps = []
+            for p in ("float64", "float32", "tf32", "bf16"):
+                rs.solve(problem, pc, b, p, steps)
+            assert steps == [] and rs.diagonalizable(pc)
+            assert torch.equal(rs.surrogate_solve(problem, pc, b), rs.solve(problem, pc, b, "float64"))
+    pc, data = _case("wave", 2, "consistent", 6)
+    with pytest.raises(AssertionError, match="GMRES entered"):
+        rs.solve("wave", pc, ref.rhs("wave", pc, data))
+
+
+def test_surrogate_symbols_are_the_sine_diagonal_of_the_consistent_mass():
+    """The surrogate's mass eigenvalues are the diagonal of V M V^T / (N_x/2)^2
+    for the 2D consistent mass; its stiffness eigenvalues the 5-point ones."""
+    N_x = 8
+    pc = {"N_x": N_x, "dim": 2, "mass": "consistent"}
+    m, k = rs.symbols(pc)
+    i = torch.arange(1, N_x, dtype=torch.float64)
+    S = torch.sin(math.pi * torch.outer(i, i) / N_x)
+    V = torch.einsum("ay,bx->abyx", S, S).reshape((N_x - 1) ** 2, -1)
+    MV = ref.mass(pc, V) @ V.T / (N_x / 2) ** 2
+    np.testing.assert_allclose(torch.diagonal(MV).numpy(), m.numpy(), atol=1e-15)
+    assert float((MV - torch.diag(torch.diagonal(MV))).abs().max()) > 1e-4  # the part the surrogate leaves out
+    np.testing.assert_allclose(k.numpy(), rs.eigenvalues(dict(pc, mass="lumped"))[1].numpy())
+    with pytest.raises(ValueError, match="does not diagonalize"):
+        rs.eigenvalues(pc)
+
+
+def test_the_control_of_a_2d_consistent_cell_reads_above_the_program():
+    """A tiny 2D consistent wave cell under the batch8 traffic: the port's
+    float32 route passes where the TF32 GMRES control in its place reads
+    more than 3 times as high; the surrogate alone reads higher than the
+    program too."""
+    from portbench import cell as cellmod
+    from portbench_helpers import consistent_cell
+
+    cell = consistent_cell("batch8", N_x=32, N_t=16)
+    seed = 2**31 + 77
+    precision = rs.control_precision(cell.traffic)
+    assert precision == "tf32"
+    pc = cell.config["problem_config"]
+
+    def wrap(solve):
+        return lambda fn: (lambda b: (solve(b), None))
+
+    program = cellmod.run_cell(cell, seed, 0.1, False, device="cpu")
+    control = cellmod.run_cell(cell, seed, 0.1, False, device="cpu",
+                               wrap=wrap(lambda b: rs.solve("wave", pc, b.to(torch.float64), precision)))
+    surrogate = cellmod.run_cell(cell, seed, 0.1, False, device="cpu",
+                                 wrap=wrap(lambda b: rs.surrogate_solve("wave", pc, b)))
+    read = {k: v["check"]["rel_residual"]["value"] for k, v in
+            (("program", program), ("control", control), ("surrogate", surrogate))}
+    assert program["check"]["answered"]["value"] == 32
+    assert read["control"] > 3 * read["program"] and read["surrogate"] > 3 * read["program"]
