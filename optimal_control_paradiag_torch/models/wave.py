@@ -237,7 +237,16 @@ class WaveControlProblem:
         iteration with a float64 basis, a mesh-independent handful with a
         float32 one), or with ``pc_variant='blockband'`` the SMW solve over
         the RCM-banded factorization. The GMRES tolerance is ``solver.rtol``
-        below 1e-6, else 1e-10 in float64 and 1e-5 in float32."""
+        below 1e-6, else 1e-10 in float64 and 1e-5 in float32.
+
+        The tensor GMRES's surrogate solve: with ``use_pallas=True`` B1
+        between the packed 'fft2' time transforms
+        (``build_cuda_woodbury_solver(op, refine=0, mass_surrogate=True)``:
+        one launch an apply on a CUDA space, the kernel's plain twin on the
+        CPU); with ``use_pallas=False`` the eager composition over torch's
+        rfft. Either runs at refine 0, whatever ``solver.refine`` says: in
+        float64 the surrogate's solve is exact but for rounding. The other
+        routes take no ``use_pallas``."""
         op = self.operator
         f64 = self.config.dtype == torch.float64
         tight = solver.rtol if solver.rtol < 1e-6 else (1e-10 if f64 else 1e-5)
@@ -246,7 +255,12 @@ class WaveControlProblem:
             return build_woodbury2d_solver(op, cap_rtol=tight)
         if not structured:
             return build_eig_gmres_solver(op, rtol=tight)
-        return build_tensor_gmres_solver(op, rtol=tight)
+        surrogate = None
+        if solver.use_pallas:
+            from optimal_control_paradiag_torch.paradiag.cuda_woodbury import build_cuda_woodbury_solver
+
+            surrogate = build_cuda_woodbury_solver(op, refine=0, mass_surrogate=True)
+        return build_tensor_gmres_solver(op, rtol=tight, surrogate_solve=surrogate)
 
     def _eig_richardson_route(self, solver: SolverConfig) -> bool:
         """Whether the direct solve takes the eigenbasis Richardson route: a

@@ -61,10 +61,13 @@ class WoodburyConstants:
     phases: torch.Tensor  # (K, 16) phi (weighted extraction) and psi (injection), re/im
 
 
-def pack_constants(op: AllAtOnceOperator) -> WoodburyConstants:
+def pack_constants(op: AllAtOnceOperator, mass_surrogate: bool = False) -> WoodburyConstants:
     """Host float64 constant packing (``pallas_woodbury.py:157-222``) without
-    the Pallas column padding: the kernel guards ``j < n`` itself."""
-    plan = _spectral_plan(op)
+    the Pallas column padding: the kernel guards ``j < n`` itself.
+    ``mass_surrogate=True``: the constants of the tensor-mass surrogate
+    (``_spectral_plan(op, mass_surrogate=True)``), the operator the kernel
+    then solves exactly on the 2D consistent mass."""
+    plan = _spectral_plan(op, mass_surrogate=mass_surrogate)
     N_t, n = plan.N_t, plan.n
     K = N_t // 2 + 1
     rdtype, dev = plan.rdtype, plan.device
@@ -218,8 +221,12 @@ def fused_woodbury(b_hat: torch.Tensor, consts: WoodburyConstants, refine: int) 
         return dispatch(KERNEL, b_hat, consts, refine, fused_woodbury_reference)
 
 
-def build_cuda_woodbury_solver(op: AllAtOnceOperator, refine: int = 1) -> Callable[[torch.Tensor], torch.Tensor]:
+def build_cuda_woodbury_solver(op: AllAtOnceOperator, refine: int = 1,
+                               mass_surrogate: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
     """Direct solver ``b -> x`` (``fused.build_direct_solver``): ONE fused
-    kernel launch, from ``csrc/woodbury.cu``, between the packed transforms."""
-    return build_direct_solver(KERNEL, op.space, op.N_t, op.space.dtype, lambda: pack_constants(op),
-                               fused_woodbury, refine)
+    kernel launch, from ``csrc/woodbury.cu``, between the packed transforms.
+    ``mass_surrogate=True``: the exact solve of the tensor-mass surrogate
+    (:func:`pack_constants`), the preconditioner of the 2D consistent
+    mass's tensor GMRES."""
+    return build_direct_solver(KERNEL, op.space, op.N_t, op.space.dtype,
+                               lambda: pack_constants(op, mass_surrogate=mass_surrogate), fused_woodbury, refine)

@@ -45,6 +45,7 @@ from optimal_control_paradiag_torch.ops.allatonce import AllAtOnceOperator
 from optimal_control_paradiag_torch.paradiag.pc import build_preconditioner
 from optimal_control_paradiag_torch.paradiag.spectral import _build_woodbury_half, _capacity_CW, _spectral_plan
 from optimal_control_paradiag_torch.utils.constants import to_device
+from optimal_control_paradiag_torch.utils.timing import counters, spanned
 
 
 def solve_lanes(matvec, b: torch.Tensor, lane_ndim: int, **kwargs):
@@ -157,6 +158,7 @@ def build_tensor_gmres_solver(
     maxiter: int = 60,
     restart: Optional[int] = None,
     with_result: bool = False,
+    surrogate_solve: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Mesh-independent solve of the 2D CONSISTENT-mass all-at-once system:
     GMRES on the physical operator, preconditioned by the EXACT direct solve
@@ -168,12 +170,23 @@ def build_tensor_gmres_solver(
     (x) D_y`` (D the centred-difference matrix) with a ZERO sine diagonal.
     The surrogate operator ``A_t`` (the same time structure and stiffness,
     mass ``M_t``) is sine-diagonalizable, so the rank-4 Woodbury identity
-    solves it exactly (``spectral._build_woodbury_half`` over the
-    ``mass_surrogate`` plan). As a left preconditioner it leaves ``I +
+    solves it exactly. As a left preconditioner it leaves ``I +
     A_t^{-1} Delta_E``, whose symbol ratio ``~ (cos a cos b) / (3 + cos a +
     cos b)`` is bounded below 1 uniformly in the mesh and the mode, so GMRES
     converges at an N-independent rate (the JAX package measures 7 / 7 / 8
     iterations at rtol 1e-10 for N_x = N_t = 16 / 32 / 64 in float64).
+
+    ``surrogate_solve``: the surrogate's exact solve ``b -> A_t^{-1} b``.
+    The wave model passes B1 between the packed 'fft2' time transforms
+    (``cuda_woodbury.build_cuda_woodbury_solver(op, refine=0,
+    mass_surrogate=True)``) under ``use_pallas=True``; ``None`` (the
+    default, and ``use_pallas=False``) builds the eager composition,
+    ``spectral._build_woodbury_half`` over the ``mass_surrogate`` plan at
+    refine 0, torch's rfft in time. Each apply is a ``pc/apply`` span,
+    counted in ``utils.timing.counters['pc.tensor_mass.applies']``; each
+    call of ``solve`` in ``counters['solve.tensor_gmres']``. A
+    left-preconditioned call applies it once more than its (slowest lane's)
+    Arnoldi steps, a restart once more again.
 
     ``solve(b)`` returns x, or ``(x, GmresResult)`` with ``with_result``;
     a batch ``(B, 2, N_t, n)`` gets per-lane records."""
@@ -183,11 +196,19 @@ def build_tensor_gmres_solver(
             "space is sine-diagonalizable: use the exact rank-4 Woodbury "
             "(paradiag.spectral.build_woodbury_solver)"
         )
-    W_t = _build_woodbury_half(op, _spectral_plan(op, mass_surrogate=True), refine=0)
+    if surrogate_solve is None:
+        surrogate_solve = _build_woodbury_half(op, _spectral_plan(op, mass_surrogate=True), refine=0)
     if restart is None:
         restart = maxiter
 
+    def apply_pc(r: torch.Tensor) -> torch.Tensor:
+        counters["pc.tensor_mass.applies"] += 1
+        return surrogate_solve(r)
+
+    W_t = spanned("pc/apply", apply_pc)
+
     def solve(b: torch.Tensor):
+        counters["solve.tensor_gmres"] += 1
         res = solve_lanes(op.matvec, b, 3, M=W_t, restart=restart, rtol=rtol, maxiter=maxiter)
         return (res.x, res) if with_result else res.x
 

@@ -35,7 +35,10 @@ Counters. :data:`counters` counts whether or not a profiler records:
 ``time_pack.pack.launches``, ``time_pack.split.launches``,
 ``time_pack.merge.launches`` and ``time_pack.unpack.launches`` (the
 kernels' launches), ``pc.fulldiag.half_spectrum`` (each unsharded
-'fulldiag' ParaDiag apply, which runs on the real half spectrum), and,
+'fulldiag' ParaDiag apply, which runs on the real half spectrum),
+``pc.tensor_mass.applies`` (each apply of the tensor-mass surrogate's
+solve, the preconditioner of the 2D consistent mass's tensor GMRES) and
+``solve.tensor_gmres`` (each call of that solve), and,
 through :func:`counted_span`, ``krylov/step`` and ``host/sync`` (host syncs
 per Krylov step is their ratio) and the 2D sine transform's
 ``transforms/dst.x`` and ``transforms/dst.y``.
