@@ -7,11 +7,12 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``, and no network. Phases, each of which fails the run:
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
-2. build the five kernel sources at once, each by its own nvcc: the fused
+2. build the six kernel sources at once, each by its own nvcc: the fused
    Woodbury kernels of ``csrc/woodbury.cu`` (slab and streaming), those
    of ``csrc/heat_woodbury.cu`` (slab and streaming), the two routes
    of the bf16x3 GEMM (phase 42) and the packed FFT's pack, split, merge
-   and unpack (``csrc/time_pack.cu``, phase 46), beside the variant
+   and unpack (``csrc/time_pack.cu``, phase 46) and CGS2's passes
+   (``csrc/cgs2.cu``, phase 47), beside the variant
    builds used for measurement only (``-DWOODBURY_PROFILE``,
    ``-DHEAT_WOODBURY_PROFILE``, the same with ``-DHEAT_WOODBURY_SKIP_B``,
    ``-DHEAT_WOODBURY_PLANES``, ``-DBF16X3_PROFILE``); print each kernel's ptxas registers and
@@ -63,7 +64,8 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     one iteration of ``fulldiag`` and its u within 1e-6;
 14. GMRES at the wave headline width (N_x = 2048, N_t = 1024, float64,
     rtol 1e-8): at most 30 iterations, float64 oracle residual <= 1e-6;
-    the clamped restart; the right-preconditioned run (printed);
+    every Arnoldi step on CGS2's kernels (four launches a step, phase
+    47); the clamped restart; the right-preconditioned run (printed);
 15. heat GMRES (float64, rtol 1e-10) at both heat shapes: at most 5
     iterations, float64 residual <= 1e-8;
 16. time the GMRES solves (device and host wall), one Arnoldi step, one
@@ -119,7 +121,8 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     float32, 9,339,136 unknowns) through ``WaveControlProblem(...).solve(
     SolverConfig(method='woodbury'))``, the tensor GMRES: at most 3
     iterations, float64 oracle <= 5e-4 (the JAX bench: 1 and 8.52e-5),
-    device and host wall time, peak memory;
+    every Arnoldi step on CGS2's kernels, device and host wall time, peak
+    memory;
 26. the same for ``HeatControlProblem``: at most 3 iterations, oracle
     <= 2e-3 (the JAX bench: 1 and 5.16e-4);
 27. GMRES with ``inner='auto'`` (blockline) on the 2D consistent mass at
@@ -141,7 +144,8 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     float64, blockline) and ``--mesh-file`` on an .npz mesh written to a
     temporary directory: converged, iterations and seconds printed;
 31. batched tensor GMRES (N_x = N_t = 32, float64, B = 3): per-lane
-    iterations equal to the sequential solves', each lane within 1e-10;
+    iterations equal to the sequential solves', each lane within 1e-10,
+    every Arnoldi step on CGS2's kernels;
 32. the pencil eigenbases of the JAX bench's perturbed N = 32 mesh (n =
     961, float32): 'host', 'torch', 'device' (cuSOLVER) and 'sdc'
     (``base_size=256``, so it splits), each with its setup seconds,
@@ -246,8 +250,26 @@ Runs from the root of a checkout; needs one CUDA card, ``nvcc`` and
     ``kernels`` line gains T1 (split), T2 (merge), T3 (pack) and T4
     (unpack): float32 headline L2 cold and warm, the twin's time, the
     bound.
+47. CGS2's kernels (``csrc/cgs2.cu``, built in phase 2: three split-K
+    passes and a scale a step) at both GMRES cells' shapes (the 2D
+    consistent cell's B = 8, m = 9,339,136 and the float64 GMRES cell's
+    B = 1, m = 4,192,256; float64) and at phase 25's (B = 1, m =
+    9,339,136, float32), on a basis the twin orthonormalised, at k = 1, 5
+    and 9: the Hessenberg column and the new row against the twin
+    (``krylov/gmres.py`` ``cgs2_reference``, <= 1e-12 relative in
+    float64, 1e-5 in float32), four counted launches a step, each step
+    timed L2 cold and warm beside its bound (bytes: (3 (k + 1) + 7) m B
+    itemsize), beside the twin's time (the profiler's count of the
+    kernels is the card test's: late in this run torch.profiler misses
+    kernels). The ``kernels`` line gains C1, with the
+    launches a step counted in this run: phase 47's, and those of the
+    GMRES solves of phases 14, 25 and 31, whose lines carry
+    ``cgs2_launches`` and ``krylov_steps`` (both set to 0 before the solve;
+    the phase fails unless launches = 4 x steps).
 
 ``python3 chip_smoke.py --time-pack`` runs phases 1, 2 and 46 alone;
+``python3 chip_smoke.py --cgs2`` runs phase 1, the build of
+``csrc/cgs2.cu`` and phase 47 alone;
 ``python3 chip_smoke.py --sharded`` runs phase 1 and phases 37-41 alone;
 ``python3 chip_smoke.py --bf16x3`` runs phases 1, 2, 42 and 43-45 (with
 phase 11's 'highest' polished wave solve for their gate).
@@ -330,6 +352,17 @@ B3_TOL = 1e-5
 B3_F64_TOL = 2e-5
 WAVE_HIGH_MAX_REL_RESIDUAL = 5e-4  # bench.py stage_woodbury_polished of the JAX package
 HIGH_RESIDUAL_FACTOR = 1.25  # a 'high' polished solve against the 'highest' one
+# CGS2 (phase 47): the two GMRES cells' (lanes, m) in float64 and phase
+# 25's float32 tensor GMRES shape, and the steps timed. Kernels against the
+# twin: the same products summed in another order, ~1e-15 relative in
+# float64 (tests/test_torch_cuda_cgs2.py), so 1e-12; float32 1e-5.
+CGS2_CASES = {"wave2d_consistent": (8, 9_339_136, "float64"), "gmres_f64": (1, 4_192_256, "float64"),
+              "consistent_2d_f32": (1, 9_339_136, "float32")}
+CGS2_KS = (1, 5, 9)
+CGS2_TOL = {"float64": 1e-12, "float32": 1e-5}
+# CGS2's launches and Arnoldi steps in the GMRES solves of phases 14, 25
+# and 31 (cgs2_route), for the kernels line.
+CGS2_ROUTE = {}
 
 
 def fail(msg: str) -> int:
@@ -416,6 +449,25 @@ def count_syncs(torch, fn):
     sites = collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in rec
                                 if "synchroniz" in str(w.message))
     return out, {"sync_debug": sum(sites.values()), "explicit_calls": calls["n"], "sync_sites": dict(sites)}
+
+
+def cgs2_route(label: str, fn):
+    """``fn()`` with ``counters['cgs2.launches']`` and
+    ``counters['krylov/step']`` set to 0 just before it: its result, the
+    two counts (also kept in ``CGS2_ROUTE[label]``), and what failed where
+    the Arnoldi steps did not all take CGS2's kernels (four launches a
+    step), else None."""
+    from optimal_control_paradiag_torch.ops.cgs2 import LAUNCHES_PER_STEP
+    from optimal_control_paradiag_torch.utils.timing import counters
+
+    counters["cgs2.launches"] = counters["krylov/step"] = 0
+    out = fn()
+    counts = {"cgs2_launches": counters["cgs2.launches"], "krylov_steps": counters["krylov/step"]}
+    CGS2_ROUTE[label] = counts
+    if counts["krylov_steps"] >= 1 and counts["cgs2_launches"] == LAUNCHES_PER_STEP * counts["krylov_steps"]:
+        return out, counts, None
+    return out, counts, (f"{label}: {counts['cgs2_launches']} CGS2 launches in {counts['krylov_steps']} "
+                         f"Arnoldi steps, not {LAUNCHES_PER_STEP} a step")
 
 
 def roofline(nbytes: int, flops: int, flops_per_s: float = FP32_FLOPS_PER_S) -> dict:
@@ -585,7 +637,7 @@ def gmres_phases(torch, smi, flush):
     gcfg = SolverConfig(method="gmres", rtol=1e-8)
     half0 = counters["pc.fulldiag.half_spectrum"]
     t0 = time.perf_counter()
-    gsol = gprob.solve(gcfg)
+    gsol, route, route_err = cgs2_route("gmres_headline", lambda: gprob.solve(gcfg))
     torch.cuda.synchronize()
     first_solve_s = time.perf_counter() - t0
     half_applies = counters["pc.fulldiag.half_spectrum"] - half0
@@ -598,7 +650,7 @@ def gmres_phases(torch, smi, flush):
                       "clamp_warning": str(rec[0].message) if rec else None,
                       "iterations": g_its, "converged": g_conv, "first_solve_s": first_solve_s,
                       "relative_residual_f64": g_rel, "final_residual_norm": float(gsol.result.residual_norm),
-                      "pc_half_spectrum_applies": half_applies,
+                      "pc_half_spectrum_applies": half_applies, **route,
                       "gates": {"iterations": GMRES_HEADLINE_MAX_ITERS,
                                 "relative_residual_f64": GMRES_HEADLINE_MAX_REL_RESIDUAL},
                       "right_iterations": int(rsol.result.iterations),
@@ -612,6 +664,8 @@ def gmres_phases(torch, smi, flush):
         return f"headline GMRES residual {g_rel:.3e} > {GMRES_HEADLINE_MAX_REL_RESIDUAL}"
     if half_applies != g_its + 1:  # left preconditioning: each step and the starting residual
         return f"headline GMRES ran {half_applies} half-spectrum PC applies in {g_its} iterations"
+    if route_err:
+        return route_err
     del rsol
 
     # 15. heat GMRES at both heat shapes, float64
@@ -1486,7 +1540,7 @@ def nondiagonal_phases(torch, smi, flush):
     torch.cuda.reset_peak_memory_stats()
     wp = WaveControlProblem(ProblemConfig(**CONSISTENT_2D, dtype=f32), device=DEVICE)
     wcfg = SolverConfig(method="woodbury")
-    sol, first_s = first(lambda: wp.solve(wcfg))
+    (sol, route, route_err), first_s = first(lambda: cgs2_route("consistent_2d_woodbury", lambda: wp.solve(wcfg)))
     rel = wp.relative_residual_f64(sol)
     # the route's own settings (rtol 1e-5 in float32, maxiter 60), with its record
     (_, res), _ = first(lambda: build_tensor_gmres_solver(wp.operator, rtol=1e-5, with_result=True)(wp.rhs))
@@ -1498,9 +1552,11 @@ def nondiagonal_phases(torch, smi, flush):
                       "unknowns": wp.operator.size, "iterations": its, "converged": conv, "relative_residual_f64": rel,
                       "jax_bench_iterations": 1, "jax_bench_rel_f64": 8.52e-5, "gate_iterations": CONSISTENT_MAX_ITERS,
                       "gate": CONSISTENT_WAVE_MAX_REL, "first_solve_s": first_s, "ms": ms, "host_wall_ms": wall,
-                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi}), flush=True)
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **route, "card": smi}), flush=True)
     if not (conv and its <= CONSISTENT_MAX_ITERS and rel <= CONSISTENT_WAVE_MAX_REL):
         return f"wave 2D consistent: converged {conv} in {its} iterations, residual {rel:.3e}"
+    if route_err:
+        return route_err
     del wp, sol, run, res
 
     # 26. heat 2D consistent mass, the same shape
@@ -1649,15 +1705,17 @@ def nondiagonal_phases(torch, smi, flush):
     bs = torch.stack([p.rhs] + [p.rhs * (1.0 + 0.5 * torch.randn(p.rhs.shape, dtype=f64, device=DEVICE, generator=g))
                                 for _ in range(BATCHED_TENSOR_B - 1)])
     solve = build_tensor_gmres_solver(p.operator, rtol=1e-10, with_result=True)
-    xs, res = solve(bs)
+    (xs, res), route, route_err = cgs2_route("batched_tensor_gmres", lambda: solve(bs))
     seq = [solve(bs[i]) for i in range(BATCHED_TENSOR_B)]
     its_b, its_s = [int(v) for v in res.iterations], [int(r.iterations) for _, r in seq]
     dx = max(rel_err(torch, xs[i], seq[i][0]) for i in range(BATCHED_TENSOR_B))
     print(json.dumps({"phase": "batched_tensor_gmres", "N_x": 32, "N_t": 32, "dtype": "float64", "B": BATCHED_TENSOR_B,
                       "iterations": its_b, "iterations_sequential": its_s, "x_rel_max_abs_vs_sequential": dx,
-                      "tol": BATCHED_TENSOR_TOL}), flush=True)
+                      "tol": BATCHED_TENSOR_TOL, **route}), flush=True)
     if not (its_b == its_s and dx <= BATCHED_TENSOR_TOL and all(bool(c) for c in res.converged)):
         return f"batched tensor GMRES: iterations {its_b} vs {its_s}, lanes {dx:.3e} apart"
+    if route_err:
+        return route_err
     return None
 
 
@@ -2315,6 +2373,67 @@ def time_pack_phases(torch, smi, flush):
                   entry("unpack", "T4 time_pack_unpack_kernel", "optimal_control_paradiag_tpu/ops/transforms.py:295")]
 
 
+def cgs2_phases(torch, smi, flush):
+    """Phase 47: CGS2's kernels (``csrc/cgs2.cu``) against their twin and
+    timed at both GMRES cells' shapes and phase 25's float32 one. Prints
+    one JSON line per result; returns (None, the C1 entry of the
+    ``kernels`` line), or (what failed, None)."""
+    from optimal_control_paradiag_torch.krylov.gmres import cgs2_reference
+    from optimal_control_paradiag_torch.ops import cgs2 as cg
+    from optimal_control_paradiag_torch.utils.timing import counters
+
+    def rel(a, b):
+        return max(float(torch.linalg.norm(a[i] - b[i]) / torch.linalg.norm(b[i])) for i in range(b.shape[0]))
+
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    rows = max(CGS2_KS) + 2
+    cases = {}
+    for case, (B, m, dtype_name) in CGS2_CASES.items():
+        dtype, tol = getattr(torch, dtype_name), CGS2_TOL[dtype_name]
+        V = torch.empty((B, rows, m), dtype=dtype, device="cuda")
+        v0 = torch.randn((B, m), dtype=dtype, device="cuda", generator=gen)
+        V[:, 0] = v0 / torch.linalg.norm(v0, dim=1, keepdim=True)
+        for k in range(rows - 1):  # an orthonormal basis, by the twin
+            cgs2_reference(V, torch.randn((B, m), dtype=dtype, device="cuda", generator=gen), k)
+        Vt = V.clone()
+        for k in CGS2_KS:
+            # a fresh w, not in the span of the rows an earlier k's timed calls rewrote
+            w = torch.randn((B, m), dtype=dtype, device="cuda", generator=gen)
+            Vt[:, : k + 1].copy_(V[:, : k + 1])
+            before = counters["cgs2.launches"]
+            H = cg.cgs2(V, w, k)
+            torch.cuda.synchronize()
+            launches = counters["cgs2.launches"] - before
+            Ht = cgs2_reference(Vt, w, k)
+            err_h, err_row = rel(H, Ht), rel(V[:, k + 1], Vt[:, k + 1])
+            label = f"{case}_k{k}"
+            if launches != cg.LAUNCHES_PER_STEP or not (err_h <= tol and err_row <= tol):
+                return (f"cgs2 {label}: {launches} launches, Hessenberg {err_h:.3g} and row {err_row:.3g} "
+                        "from the twin"), None
+            nbytes = (3 * (k + 1) + 7) * B * m * V.element_size()
+            bound = roofline(nbytes, 0)
+            step = lambda: cg.cgs2(V, w, k)  # noqa: E731
+            twin = lambda: cgs2_reference(Vt, w, k)  # noqa: E731
+            cold = timed(torch, smi, flush, f"cgs2_{label}", step, bytes=nbytes)
+            warm, _, _ = device_ms(torch, step, None)
+            twin_ms = timed(torch, smi, flush, f"cgs2_twin_{label}", twin)
+            out = {"lanes": B, "m": m, "dtype": dtype_name, "k": k, "bytes": nbytes, "ms": cold, "warm_ms": warm,
+                   **bound, "share_cold": bound["bound_ms"] / cold, "launches": launches, "twin_ms": twin_ms,
+                   "rel_err_h": err_h, "rel_err_row": err_row, "tol": tol}
+            print(json.dumps({"phase": "cgs2", "case": label, **out, "card": smi}), flush=True)
+            cases[label] = out
+        del V, Vt, w, H, Ht
+    # launches per Arnoldi step as this run counted them: phase 47's steps,
+    # and the GMRES solves of phases 14, 25 and 31 (absent under --cgs2)
+    per_step = {"cgs2_phase": sum(c["launches"] for c in cases.values()) / len(cases),
+                **{label: c["cgs2_launches"] / c["krylov_steps"] for label, c in CGS2_ROUTE.items()}}
+    return None, {"name": "cgs2_cuda", "route": "cuda", "source": "optimal_control_paradiag_torch/csrc/cgs2.cu",
+                  "kernel": "C1 cgs2_pass_kernel (three passes) and cgs2_scale_kernel",
+                  "replaces": "optimal_control_paradiag_tpu/krylov/gmres.py:159",
+                  "replaces_kind": "two blocked jnp products a step, which XLA lowers, not a pl.pallas_call",
+                  "launches_per_step": per_step, "route_counts": CGS2_ROUTE, "cases": cases}
+
+
 def b3_library(torch, b3, a, b_hi, b_lo):
     """The same function from one library call per product: the split and
     three cuBLAS bf16 products with float32 output (``torch.mm(...,
@@ -2767,6 +2886,19 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--cgs2" in sys.argv[1:]:
+        from optimal_control_paradiag_torch.ops import cgs2 as cg
+
+        built = load_library(cg.KERNEL_SOURCE)
+        print(json.dumps({"phase": "build", "source": cg.KERNEL_SOURCE, "nvcc_s": built.seconds}), flush=True)
+        print_ptxas(built.log)
+        err, c1 = cgs2_phases(torch, smi, torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda"))
+        if err:
+            return fail(err)
+        print(json.dumps({"kernels": [c1]}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--sdc-wall" in sys.argv[1:]:
         code = sdc_wall(torch, smi)
         if code == 0:
@@ -2774,7 +2906,7 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}), flush=True)
         return code
 
-    # 2. build the five sources and the measurement variants, all at once
+    # 2. build the six sources and the measurement variants, all at once
     b3_only = "--bf16x3" in sys.argv[1:]
     t0 = time.perf_counter()
     variants = {"b3_profile": start_variant(b3.WGMMA_SOURCE, "BF16X3_PROFILE")}
@@ -2784,9 +2916,11 @@ def main() -> int:
             "heat_profile": start_variant(ch.KERNEL.source, "HEAT_WOODBURY_PROFILE"),
             "heat_profile_skip_b": start_variant(ch.KERNEL.source, "HEAT_WOODBURY_PROFILE", "HEAT_WOODBURY_SKIP_B"),
             "heat_planes": start_variant(ch.KERNEL.source, "HEAT_WOODBURY_PLANES")})
+    from optimal_control_paradiag_torch.ops import cgs2 as cg
     from optimal_control_paradiag_torch.ops import time_pack as tp
 
-    sources = (cw.KERNEL.source, ch.KERNEL.source, b3.KERNEL_SOURCE, b3.WGMMA_SOURCE, tp.KERNEL_SOURCE)
+    sources = (cw.KERNEL.source, ch.KERNEL.source, b3.KERNEL_SOURCE, b3.WGMMA_SOURCE, tp.KERNEL_SOURCE,
+               cg.KERNEL_SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(zip(sources, pool.map(load_library, sources)))
     for source, built in builds:
@@ -3220,8 +3354,11 @@ def main() -> int:
     err, tp_entries = time_pack_phases(torch, smi, flush)
     if err:
         return fail(err)
+    err, c1 = cgs2_phases(torch, smi, flush)
+    if err:
+        return fail(err)
 
-    print(json.dumps({"kernels": [b1, b2, *b3_entries, *tp_entries]}), flush=True)
+    print(json.dumps({"kernels": [b1, b2, *b3_entries, *tp_entries, c1]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

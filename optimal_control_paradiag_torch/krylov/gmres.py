@@ -14,8 +14,9 @@ its one-lane case. The JAX package runs the whole solve as two nested
 
 1. on the device (:func:`arnoldi_step`), for every lane at once: the
    operator, two projections onto the active basis rows ``V[:, :k+1]`` and
-   two expansions (batched matrix products in the working dtype, float32 in
-   full FP32), the new basis rows;
+   two expansions in the working dtype, the new basis rows: on a real CUDA
+   basis three split-K passes and a scale of ``csrc/cgs2.cu``
+   (``ops/cgs2.py``), else batched matrix products (float32 in full FP32);
 2. one copy of the step's B Hessenberg columns (k + 2 numbers each) to the
    host: the step's only host synchronisation;
 3. on the host (:func:`givens_update`), per lane, in numpy in the working
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 from optimal_control_paradiag_torch.fem.space import require_full_fp32_matmul
+from optimal_control_paradiag_torch.ops import cgs2 as cuda_cgs2
 from optimal_control_paradiag_torch.parallel.sharding import resolve_layout
 from optimal_control_paradiag_torch.utils.constants import np_dtype
 from optimal_control_paradiag_torch.utils.timing import counted_span, span
@@ -54,10 +56,20 @@ from optimal_control_paradiag_torch.utils.timing import counted_span, span
 _BASIS_BUDGET_BYTES = int(float(os.environ.get("PARADIAG_GMRES_BASIS_BUDGET", 4e9)))
 
 
-def clamp_restart(restart: int, shape, dtype, maxiter: int) -> int:
+def clamp_restart(restart: int, shape, dtype, maxiter: int, rows_max: Optional[int] = None) -> int:
     """Largest restart (<= the requested one, >= 4) whose Krylov basis
-    ``(restart+1, *shape)`` fits the budget; warns when it clamps."""
+    ``(restart+1, *shape)`` fits the budget and, where ``rows_max`` is
+    given, at most ``rows_max``: the active rows CGS2's CUDA kernels stage
+    (``ops.cgs2.max_rows``; a restart of R runs steps of up to R rows).
+    Warns when it clamps."""
     restart = min(restart, maxiter)
+    if rows_max is not None and restart > rows_max:
+        warnings.warn(
+            f"GMRES restart {restart} is more than the {rows_max} basis rows CGS2's CUDA kernels "
+            f"stage in {np_dtype(dtype).name}; clamping to {rows_max}",
+            stacklevel=3,
+        )
+        restart = rows_max
     state_bytes = int(np.prod(shape)) * np_dtype(dtype).itemsize
     fit = max(4, _BASIS_BUDGET_BYTES // max(state_bytes, 1) - 1)
     if restart > fit:
@@ -108,20 +120,16 @@ def _norms(w: torch.Tensor, lay) -> torch.Tensor:
     return torch.sqrt(lay.all_reduce(sq))
 
 
-def arnoldi_step(op: Callable, V: torch.Tensor, k: int, shape, layout=None) -> torch.Tensor:
-    """The device part of Arnoldi step ``k`` for B lanes: ``w = op(V[:, k])``,
-    made orthogonal to ``V[:, :k+1]`` by CGS2 (batched products), and
-    ``V[:, k+1] = w / |w|`` (``w`` itself where ``|w| = 0``). ``V`` is the
-    flat basis ``(B, restart+1, m)``, ``op`` maps states ``(B, *shape)``.
-    Returns the B Hessenberg columns ``[h_0, ..., h_k, |w|]``, ``(B, k+2)``,
-    on the device. Under a ``layout`` (``parallel.sharding``) V holds this
-    rank's block of each basis vector, and each projection and the norm is
-    completed by an ``all_reduce`` (three per step)."""
-    B = V.shape[0]
+def cgs2_reference(V: torch.Tensor, w: torch.Tensor, k: int, layout=None) -> torch.Tensor:
+    """CGS2 of ``w`` (``(B, m)``) against ``V[:, :k+1]`` in plain PyTorch
+    (batched products), ``V[:, k+1] = w / |w|`` (``w`` itself where
+    ``|w| = 0``); returns the Hessenberg columns ``(B, k+2)``. The plain
+    twin of ``csrc/cgs2.cu``. Under a ``layout`` V and w hold this rank's
+    blocks, and each projection and the norm is completed by an
+    ``all_reduce`` (three per step)."""
+    lay = resolve_layout(layout)
     Vk = V[:, : k + 1]
     Vh = Vk.conj() if V.is_complex() else Vk
-    lay = resolve_layout(layout)
-    w = op(V[:, k].reshape((B,) + tuple(shape))).reshape(B, -1)
     h1 = lay.all_reduce(torch.bmm(Vh, w[:, :, None])[:, :, 0])
     w = w - torch.bmm(h1[:, None, :], Vk)[:, 0]
     h2 = lay.all_reduce(torch.bmm(Vh, w[:, :, None])[:, :, 0])
@@ -129,6 +137,32 @@ def arnoldi_step(op: Callable, V: torch.Tensor, k: int, shape, layout=None) -> t
     hk1 = _norms(w, lay)
     V[:, k + 1] = w / torch.where(hk1 > 0, hk1, torch.ones_like(hk1))[:, None]
     return torch.cat([h1 + h2, hk1.to(V.dtype)[:, None]], dim=1)
+
+
+def takes_cgs2_kernels(V: torch.Tensor, layout=None) -> bool:
+    """Whether Arnoldi steps on a basis of ``V``'s dtype and device run
+    ``csrc/cgs2.cu``: a real basis on a CUDA device with no sharded layout.
+    The CPU, complex bases and sharded layouts run :func:`cgs2_reference`."""
+    return V.device.type == "cuda" and not V.is_complex() and not resolve_layout(layout).sharded
+
+
+def arnoldi_step(op: Callable, V: torch.Tensor, k: int, shape, layout=None) -> torch.Tensor:
+    """The device part of Arnoldi step ``k`` for B lanes: ``w = op(V[:, k])``,
+    made orthogonal to ``V[:, :k+1]`` by CGS2, and ``V[:, k+1] = w / |w|``
+    (``w`` itself where ``|w| = 0``). ``V`` is the flat basis ``(B,
+    restart+1, m)``, ``op`` maps states ``(B, *shape)``. Returns the B
+    Hessenberg columns ``[h_0, ..., h_k, |w|]``, ``(B, k+2)``, on the
+    device. Where :func:`takes_cgs2_kernels` the step runs the CUDA kernels
+    (``ops.cgs2.cgs2``; a step they do not take raises), else the batched
+    products (:func:`cgs2_reference`); under a ``layout``
+    (``parallel.sharding``) V holds this rank's block of each basis vector,
+    and each projection and the norm is completed by an ``all_reduce``
+    (three per step)."""
+    B = V.shape[0]
+    w = op(V[:, k].reshape((B,) + tuple(shape))).reshape(B, -1)
+    if takes_cgs2_kernels(V, layout):
+        return cuda_cgs2.cgs2(V, w, k)
+    return cgs2_reference(V, w, k, layout)
 
 
 def givens_update(hcol: np.ndarray, k: int, R: np.ndarray, cs: np.ndarray, sn: np.ndarray, g: np.ndarray):
@@ -179,7 +213,8 @@ def gmres_batched(
     The restart is clamped on the per-lane shape, as the JAX package's clamp
     sees it under ``vmap``, so the iteration counts match; the Krylov basis
     ``(B, restart+1, *shape)`` therefore takes B times the budget's
-    memory.
+    memory. Where the steps run CGS2's CUDA kernels it is also capped at
+    the rows they stage (``ops.cgs2.max_rows``: 853 in float64).
 
     ``layout`` (a ``parallel.sharding.ParallelLayout``): the states are this
     rank's canonical blocks of global states, ``matvec`` and ``M`` map blocks
@@ -203,7 +238,8 @@ def gmres_batched(
         size = torch.tensor([float(b[0].numel())], dtype=torch.float64, device=b.device)
         with counted_span("host/sync"):
             clamp_shape = (int(lay.all_reduce(size).item()),)
-    restart = clamp_restart(restart, clamp_shape, b.dtype, maxiter)
+    rows_max = cuda_cgs2.max_rows(b.element_size()) if takes_cgs2_kernels(b, lay) else None
+    restart = clamp_restart(restart, clamp_shape, b.dtype, maxiter, rows_max)
     op = (lambda v: M(matvec(v))) if side == "left" else (lambda v: matvec(M(v)))
 
     def residual(x):

@@ -33,8 +33,9 @@ Counters. :data:`counters` counts whether or not a profiler records:
 ``b1.launches``, ``b2.launches`` and ``b2.launches.<kind>``,
 ``b3.launches``, ``b3.launches.wgmma``, ``b3.split.launches``,
 ``time_pack.pack.launches``, ``time_pack.split.launches``,
-``time_pack.merge.launches`` and ``time_pack.unpack.launches`` (the
-kernels' launches), ``pc.fulldiag.half_spectrum`` (each unsharded
+``time_pack.merge.launches``, ``time_pack.unpack.launches`` and
+``cgs2.launches`` (the kernels' launches; CGS2's are four a real Arnoldi
+step on the card, three passes and the scale), ``pc.fulldiag.half_spectrum`` (each unsharded
 'fulldiag' ParaDiag apply, which runs on the real half spectrum),
 ``pc.tensor_mass.applies`` (each apply of the tensor-mass surrogate's
 solve, the preconditioner of the 2D consistent mass's tensor GMRES) and
