@@ -6,7 +6,10 @@ batch of them) ended by a device synchronize, the pool of inputs cycled
 so that no call finds its input in the 50 MB L2 from the call before.
 After the window the answers are judged by the plain float64 reference
 (``reference/model.py``): every data set of the pool, every lane, by its
-last answer from the window.
+last answer from the window. A configuration with a ``"mesh"``
+(``mesh.py``) runs the port on the space its own assembly builds from the
+benchmark's mesh, once a run, and the reference on the same points and
+triangles.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from portbench import manifest, trace as tracing, traffic as gen
+from portbench import manifest, mesh as meshes, trace as tracing, traffic as gen
 from portbench.reference import model as ref
 
 
@@ -44,11 +47,27 @@ class Run:
     events: Optional[list] = None  # their device events
 
 
+def mesh_space(cell: manifest.Cell, device: torch.device):
+    """The port's space of the cell's mesh in the traffic's dtype, assembled
+    by the port (``fem.general.make_general_space``) from the benchmark's
+    points and triangles; None on a grid."""
+    spec = meshes.spec(cell.config)
+    if spec is None:
+        return None
+    from optimal_control_paradiag_torch.fem.general import make_general_space
+
+    m = meshes.build(spec)
+    return make_general_space(m.points, m.triangles, getattr(torch, cell.traffic["dtype"]), device=device)
+
+
 def problem(cell: manifest.Cell, device: torch.device, data: dict, space=None):
     """The port's problem of the cell's family, grid and traffic precision,
-    on ``data``; a wave problem shares ``space`` where one is given."""
+    on ``data``; a wave problem shares ``space`` where one is given, and a
+    mesh cell's has to be (``mesh_space``, built once by the caller)."""
     from optimal_control_paradiag_torch import HeatControlProblem, ProblemConfig, WaveControlProblem
 
+    if space is None and meshes.spec(cell.config) is not None:
+        raise ValueError("a mesh cell's problem takes the space that mesh_space built")
     tr = cell.traffic
     cfg = ProblemConfig(**cell.config["problem_config"], dtype=getattr(torch, tr["dtype"]),
                         dst_precision=tr["dst_precision"], dst_method=tr["dst_method"])
@@ -59,31 +78,43 @@ def problem(cell: manifest.Cell, device: torch.device, data: dict, space=None):
 
 def member(cell: manifest.Cell, seed: int, index: int) -> dict:
     """Data set ``index`` of the pool of ``seed`` (``traffic.member``)."""
-    return gen.member(cell.config["problem"], cell.config["problem_config"], cell.traffic["dtype"], seed, index)
+    return gen.member(cell.config["problem"], cell.config["problem_config"], cell.traffic["dtype"], seed, index,
+                      meshes.spec(cell.config))
 
 
-def entry(cell: manifest.Cell, device: torch.device):
-    """The timed entry ``fn(b) -> (x, record)`` that the traffic names."""
+def entry(cell: manifest.Cell, device: torch.device, space=None):
+    """The timed entry ``fn(b) -> (x, record)`` that the traffic names (on
+    ``space``: a mesh cell's ``mesh_space``, None on a grid)."""
     from optimal_control_paradiag_torch import SolverConfig
 
     tr = cell.traffic
     # the entry holds no data: any data set serves to build the problem
-    prob = problem(cell, device, member(cell, 0, 0))
+    prob = problem(cell, device, member(cell, 0, 0), space)
     solver = SolverConfig(**tr["solver"])
     if cell.config["problem"] == "wave":
         return prob.make_batched_solver_fn(solver) if int(tr["batch"]) > 1 else prob.make_solver_fn(solver)
     return prob._make_solver(solver)  # the dispatch of HeatControlProblem.solve
 
 
-def inputs(cell: manifest.Cell, seed: int, device: torch.device) -> list:
+def inputs(cell: manifest.Cell, seed: int, device: torch.device, space=None) -> list:
     """The pool of ``seed``: each b built by the port from a data set given
-    through ``data=``; a batch's lanes stacked."""
+    through ``data=`` (on ``space``, as ``entry``); a batch's lanes stacked."""
     batch, pool = int(cell.traffic["batch"]), int(cell.traffic["pool"])
-    first = problem(cell, device, member(cell, seed, 0))
+    first = problem(cell, device, member(cell, seed, 0), space)
     rhs = [first.rhs] + [problem(cell, device, member(cell, seed, i), first.space).rhs for i in range(1, batch * pool)]
     if batch == 1:
         return rhs
     return [torch.stack(rhs[j * batch:(j + 1) * batch]) for j in range(pool)]
+
+
+def reference_mesh(cell: manifest.Cell, device: torch.device):
+    """The reference's element matrices of the cell's mesh, worked out from
+    the benchmark's points and triangles; None on a grid."""
+    spec = meshes.spec(cell.config)
+    if spec is None:
+        return None
+    m = meshes.build(spec)
+    return ref.Elements(m.points, m.triangles, m.interior, device=device)
 
 
 def judge(cell: manifest.Cell, seed: int, answers: list, device: torch.device) -> Dict[str, list]:
@@ -92,12 +123,13 @@ def judge(cell: manifest.Cell, seed: int, answers: list, device: torch.device) -
     fixed one (``traffic.fixed``)."""
     family, pc = cell.config["problem"], cell.config["problem_config"]
     batch = int(cell.traffic["batch"])
+    mesh = reference_mesh(cell, device)
     rel = [math.inf] * (batch * len(answers))
     for j, x in enumerate(answers):
         for lane in range(batch if x is not None else 0):
             i = j * batch + lane
             data = {k: torch.from_numpy(v).to(device) for k, v in member(cell, seed, i).items()}
-            r = ref.rel_residual(family, pc, data, x[lane] if batch > 1 else x)
+            r = ref.rel_residual(family, pc, data, x[lane] if batch > 1 else x, mesh)
             rel[i] = math.inf if math.isnan(r) else r
     return {"rel_residual": rel, "fixed": [gen.fixed(i) for i in range(len(rel))]}
 
@@ -130,11 +162,12 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     phases = {"start": time.perf_counter() - t_start}  # set-up's parts, seconds from process start
-    fn = entry(cell, device)
+    sp = mesh_space(cell, device)
+    fn = entry(cell, device, sp)
     phases["entry"] = time.perf_counter() - t_start
     if wrap is not None:
         fn = wrap(fn)
-    pool_in = inputs(cell, seed, device)
+    pool_in = inputs(cell, seed, device, sp)
     phases["pool"] = time.perf_counter() - t_start
     pool, batch = len(pool_in), int(cell.traffic["batch"])
     answers: list = [None] * pool
@@ -189,7 +222,7 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
         run.peak_bytes = int(torch.cuda.max_memory_allocated(device))
 
     # the program's state goes before the reference runs; its answers stay
-    del fn, pool_in
+    del fn, pool_in, sp
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()

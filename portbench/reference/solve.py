@@ -21,6 +21,12 @@ preconditioner is the sine solve of the surrogate: the same time rows and
 diagonals, with the symbol (h^2/12)(6 + 2c_i + 2c_j + 2c_i c_j). Alone,
 without the correction, the surrogate is ``surrogate_solve``.
 
+On a triangle mesh (``model.Elements``; its configuration is the
+unperturbed N_x grid's 2D consistent mass) ``solve`` runs the same GMRES on
+the mesh's matvec, preconditioned by the sine solve of that grid's
+surrogate; ``surrogate_solve`` is that sine solve alone, a program that
+solved the unmoved grid instead of the mesh.
+
 ``precision`` sets the arithmetic, the step below a configuration's own
 that would tempt a later change:
 
@@ -30,7 +36,8 @@ that would tempt a later change:
   TF32 (10 mantissa bits) first, as tensor cores take them, and summed in
   float32; in GMRES also the vector operand of every mass and stiffness
   product of the matvec (their stencils' weights 1, 4 and 6 are exact;
-  the scalars h^2/12, dt^2/2 multiply in float32);
+  the scalars h^2/12, dt^2/2 multiply in float32) and, on a mesh, every
+  element value (areas and gradient products) beside it;
 - 'bf16': the same with bfloat16 operands (7 mantissa bits).
 
 GMRES stops by a fixed rule: in 'float64' it restarts every ``RESTART``
@@ -80,7 +87,8 @@ def _rounding(precision: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def diagonalizable(pc: dict) -> bool:
-    """Whether the sine transform diagonalizes the space (all but the 2D consistent mass)."""
+    """Whether the sine transform diagonalizes the space (all but the 2D
+    consistent mass, which a mesh's configuration states)."""
     return pc["dim"] == 1 or pc["mass"] == "lumped"
 
 
@@ -263,23 +271,25 @@ def _gmres(A: Callable, P: Callable, b: torch.Tensor, precision: str) -> tuple:
 
 
 def solve(problem: str, pc: dict, b: torch.Tensor, precision: str = "float64",
-          iterations: Optional[List[int]] = None) -> torch.Tensor:
-    """x of A x = b for b ``(..., 2, N_t, n)`` (any leading lanes), computed
-    in ``precision``; returned in the dtype of that precision. On the 2D
-    consistent mass (GMRES) each lane's number of steps is appended to
-    ``iterations`` where it is a list."""
+          iterations: Optional[List[int]] = None, mesh: Optional[model.Elements] = None) -> torch.Tensor:
+    """x of A x = b for b ``(..., 2, N_t, n)`` (any leading lanes), on the
+    grid or on ``mesh``, computed in ``precision``; returned in the dtype of
+    that precision. On the 2D consistent mass and a mesh (GMRES) each
+    lane's number of steps is appended to ``iterations`` where it is a
+    list."""
     dtype = torch.float64 if precision == "float64" else torch.float32
     N, n = pc["N_t"], b.shape[-1]
     lead = b.shape[:-3]
     lanes = b.to(dtype).reshape((-1, 2, N, n))
     with _full_float32():
         P = _sine_solver(problem, pc, precision, b.device, *symbols(pc))
-        if diagonalizable(pc):
+        if mesh is None and diagonalizable(pc):
             return P(lanes).reshape(lead + (2, N, n))
         rnd, shape = _rounding(precision), (1, 2, N, n)
+        mesh = None if mesh is None else mesh.to(dtype, rnd)
 
         def A(v):  # one lane, flat
-            return model.matvec(problem, pc, rnd(v).reshape(shape)).reshape(-1)
+            return model.matvec(problem, pc, rnd(v).reshape(shape), mesh).reshape(-1)
 
         def P1(v):
             return P(v.reshape(shape)).reshape(-1)
@@ -295,7 +305,8 @@ def solve(problem: str, pc: dict, b: torch.Tensor, precision: str = "float64",
 
 def surrogate_solve(problem: str, pc: dict, b: torch.Tensor) -> torch.Tensor:
     """The sine solve of the surrogate alone, in float64, with no correction
-    (on a space S diagonalizes, the space's own solve)."""
+    (on a space S diagonalizes, the space's own solve; for a mesh, the
+    unperturbed grid's surrogate)."""
     N, n = pc["N_t"], b.shape[-1]
     with _full_float32():
         P = _sine_solver(problem, pc, "float64", b.device, *symbols(pc))

@@ -1,12 +1,10 @@
 """The 2D consistent-mass wave cell (``wave2d_consistent.batch8_f64``) and
-its two readers on the CPU. The tests parametrized over
-``portbench_helpers.CELLS`` (manifest, traffic, fault, control, whole
-run) are called here on this cell, which that list does not name; then
-what is the cell's own: its files and metrics, its limit between its
-readings, the surrogate in the program's place, the committed files run
-at a cut grid, B1's bytes and operations at the cell's shape, each
-reader None where it has nothing to read, and a share from a made-up
-trace."""
+its two readers on the CPU: what is the cell's own (the tests
+parametrized over ``portbench_helpers.CELLS`` run it with the others):
+its files and metrics, its limit between its readings, the surrogate in
+the program's place, the committed files run at a cut grid, B1's bytes
+and operations at the cell's shape, each reader None where it has
+nothing to read, and a share from a made-up trace."""
 
 import json
 import os
@@ -20,18 +18,11 @@ from portbench.cell import Run
 from portbench.reference import solve as rs
 from portbench_helpers import CELLS, tiny
 
-import test_portbench_control
-import test_portbench_faults
-import test_portbench_manifest
-import test_portbench_run
-import test_portbench_traffic
-
 torch.set_num_threads(1)
 
 CELL = "wave2d_consistent.batch8_f64"
 NEW = ("b1_tensor_pc_roofline_pct", "tensor_pc_applies_per_call")
 OTHERS = [c for c in CELLS if c != CELL]
-WITH_CELL = [*OTHERS, CELL]  # BENCHMARK.json's cells, in its order
 GRID = (64, 32)  # (N_x, N_t), as the control's tests cut a 2D cell
 
 
@@ -94,35 +85,6 @@ def test_the_limit_lies_between_its_readings():
     assert readings["program_seeds"] >= 12 and readings["control_seeds"] >= 3 and readings["control"] == "float32"
     upper = min(readings["control_smallest"], readings["surrogate_smallest"], readings["zero_answer"])
     assert readings["program_largest"] < limit < upper
-
-
-# ------------------------------------------------- the tests over every cell
-
-
-@pytest.mark.parametrize("check", [test_portbench_manifest.test_every_named_file_is_found,
-                                   test_portbench_manifest.test_per_layer_moves_a_metric_each_of_its_cells_reports],
-                         ids=lambda f: f.__name__)
-def test_the_manifest_checks_hold_with_the_cell(check, monkeypatch):
-    monkeypatch.setattr(test_portbench_manifest, "CELLS", WITH_CELL)
-    check(manifest.benchmark())
-
-
-@pytest.mark.parametrize("fault", [test_portbench_faults.unchanged, test_portbench_faults.slice_lost,
-                                   test_portbench_faults.stale], ids=lambda f: f.__name__)
-def test_a_broken_timed_path_is_not_correct(fault):
-    test_portbench_faults.test_a_broken_timed_path_is_not_correct(CELL, fault)
-
-
-def test_same_seed_same_bits_other_seed_other_data():
-    test_portbench_traffic.test_same_seed_same_bits_other_seed_other_data(CELL)
-
-
-def test_a_whole_run_on_the_cpu():
-    test_portbench_run.test_a_whole_run_on_the_cpu(CELL)
-
-
-def test_the_control_is_not_correct_and_the_program_is():
-    test_portbench_control.test_the_control_is_not_correct_and_the_program_is(CELL)
 
 
 # ------------------------------------------------------------- runs at 64 x 32

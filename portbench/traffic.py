@@ -9,7 +9,8 @@ spatial mode: the wave family's is the reference code's test problem
 (``Control_Wave_PC.py``: u = sin(pi x) cos(pi t), p = sin(pi x) (e^t - e^T)^2
 in 1D), the heat family's u = sin(pi x) e^-t, p = sin(pi x) (e^(t-T) - 1);
 member ``i`` of a pool puts ``sin(k pi x)`` (``sin(k pi x) sin(k pi y)`` in
-2D) in place of the first mode, ``k = 1 + i % MODES``, and derives f and g
+2D, at a mesh's moved interior nodes where the configuration has one,
+``mesh.py``) in place of the first mode, ``k = 1 + i % MODES``, and derives f and g
 for that mode as the source derives them for the first (a manufactured
 solution at every k). So every pool holds the same modes at the same places.
 The seed scales each member as a whole by a factor, log-uniform in [1/2, 2]:
@@ -26,16 +27,21 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+
+from portbench import mesh as meshes
 
 MODES = 8  # the spatial modes 1..MODES, in turn along the pool
 NP_DTYPES = {"float32": np.float32, "float64": np.float64}
 
 
-def coords(pc: dict):
-    """Interior node coordinates, flat, row-major over (y, x) in 2D."""
+def coords(pc: dict, mesh: Optional[dict] = None):
+    """Interior node coordinates, flat, row-major over (y, x) in 2D; a
+    mesh's (``mesh.py``), in its point order, where ``mesh`` is given."""
+    if mesh is not None:
+        return meshes.build(mesh).coords
     pts = np.arange(1, pc["N_x"]) / pc["N_x"]
     if pc["dim"] == 1:
         return (pts,)
@@ -61,18 +67,19 @@ def mode(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=MODES)
-def _manufactured(problem: str, pc: tuple, k: int) -> Dict[str, np.ndarray]:
-    return manufactured(problem, dict(pc), k)
+def _manufactured(problem: str, pc: tuple, k: int, mesh: Optional[tuple]) -> Dict[str, np.ndarray]:
+    return manufactured(problem, dict(pc), k, None if mesh is None else dict(mesh))
 
 
-def manufactured(problem: str, pc: dict, k: int = 1) -> Dict[str, np.ndarray]:
+def manufactured(problem: str, pc: dict, k: int = 1, mesh: Optional[dict] = None) -> Dict[str, np.ndarray]:
     """The manufactured data of the configuration's family at spatial mode
     ``k``, float64; ``k = 1`` is the configuration's own (the port's
     ``models/analytic.py`` and ``HeatControlProblem._analytic``). Each field
-    is a time profile times the mode's shape."""
+    is a time profile times the mode's shape, at the interior nodes of the
+    grid or of ``mesh``."""
     T, gam, dim = pc["T"], pc["gamma"], pc["dim"]
     s = math.sqrt(gam) if pc.get("scaled", True) else 1.0
-    shape = np.prod([np.sin(k * math.pi * x) for x in coords(pc)], axis=0)
+    shape = np.prod([np.sin(k * math.pi * x) for x in coords(pc, mesh)], axis=0)
     lam = dim * (k * math.pi) ** 2  # -Laplace of the shape
     tt = times(problem, pc)
     tf, tg = tt["f"], tt["g"]
@@ -97,10 +104,12 @@ def fixed(index: int) -> bool:
     return index == 0
 
 
-def member(problem: str, pc: dict, dtype: str, seed: int, index: int) -> Dict[str, np.ndarray]:
+def member(problem: str, pc: dict, dtype: str, seed: int, index: int,
+           mesh: Optional[dict] = None) -> Dict[str, np.ndarray]:
     """Data set ``index`` of the pool of ``seed``: float64 arrays holding
-    values of ``dtype``."""
+    values of ``dtype``, on the grid or on ``mesh``."""
     scale = 1.0 if fixed(index) else 2.0 ** np.random.default_rng([seed % 2**63, index]).uniform(-1.0, 1.0)
     np_dtype = NP_DTYPES[dtype]
-    base = _manufactured(problem, tuple(sorted(pc.items())), mode(index))  # a pool computes each mode once
+    key = None if mesh is None else tuple(sorted(mesh.items()))
+    base = _manufactured(problem, tuple(sorted(pc.items())), mode(index), key)  # a pool computes each mode once
     return {k: (scale * v).astype(np_dtype).astype(np.float64) for k, v in base.items()}
